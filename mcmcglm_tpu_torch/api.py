@@ -2,9 +2,12 @@
 
 Counterpart of ``mcmcglm_tpu/api.py``: formula + data (or ``X=``/``y=``
 arrays) + family + beta_prior + slice tuning, returning an
-:class:`~.results.MCMCGLM`.  The port routes every fit to its
-:class:`~.freerun.FreeRunCGGibbs` (the JAX package's ``engine="auto"``
-choice for these kernels): adaptive burn-in, then frozen-width sampling.
+:class:`~.results.MCMCGLM`.  ``engine`` "auto" and "freerun" route to the
+port's :class:`~.freerun.FreeRunCGGibbs` (the JAX package's
+``engine="auto"`` choice for these kernels): adaptive burn-in, then
+frozen-width sampling.  ``engine="fused"`` routes to
+:class:`~.fused.FusedCGGibbs` under the JAX package's eligibility rule,
+with the fused kernels' n limit in place of the TPU's VMEM budget.
 
 ``device`` defaults to ``"cuda"`` and raises when CUDA is missing; the CPU
 runs only when the caller passes ``device="cpu"``.  ``spec_k`` (through
@@ -21,8 +24,10 @@ import torch
 
 from .formula import Design, build_design, design_from_arrays
 from .freerun import FreeRunCGGibbs
+from .fused import FusedCGGibbs
 from .models.families import check_family
-from .models.priors import Normal, make_beta_prior
+from .models.priors import IIDPrior, Normal, make_beta_prior
+from .ops.fused_cggibbs import MAX_FUSED_N
 from .results import MCMCGLM
 
 __all__ = ["mcmcglm"]
@@ -67,9 +72,13 @@ def mcmcglm(
     The argument surface is the JAX package's ``mcmcglm`` plus ``device``.
     Ported: ``slice_fn`` "stepping_out" and "quantile" with
     ``linear_predictor_calc="update"`` on the free-running engine
-    (``engine`` "auto" or "freerun").  The other kernels, the
-    "normal-normal" method, the lockstep and fused engines, ``thin > 1``
-    and ``mesh`` raise NotImplementedError naming their ROADMAP item.
+    (``engine`` "auto" or "freerun"), and the fused engine
+    (``engine="fused"``: stepping-out, an IID prior, n within
+    ``MAX_FUSED_N``, ``n_chains`` a multiple of 8; ``n_evals`` is the
+    evaluations of each sweep summed over chains, broadcast to
+    (n_chains, n_samples)).  The other kernels, the "normal-normal"
+    method, the lockstep engine, ``thin > 1`` and ``mesh`` raise
+    NotImplementedError naming their ROADMAP item.
     ``adapt_w`` is accepted for signature parity: the free-running engine
     always adapts its widths during burn-in.
     """
@@ -90,19 +99,24 @@ def mcmcglm(
             f"sample_method={sample_method!r} is not ported yet: ROADMAP "
             "queue 1, items 7 and 9 (conjugate pass, lockstep engine)"
         )
-    if linear_predictor_calc != "update":
+    if engine not in ("auto", "freerun", "xla", "fused"):
+        raise ValueError("engine must be 'auto', 'freerun', 'xla' or 'fused'")
+    if engine == "xla":
+        raise NotImplementedError(
+            "engine='xla' is not ported yet: ROADMAP queue 1, item 9 (the "
+            "lockstep engine)"
+        )
+    use_fused = engine == "fused"
+    # the fused engine's eligibility (stepping-out, 'update') is checked
+    # below with the JAX package's error
+    if linear_predictor_calc != "update" and not use_fused:
         raise NotImplementedError(
             "linear_predictor_calc='naive' is not ported yet: ROADMAP queue "
             "1, item 9 (the lockstep engine)"
         )
-    if engine in ("xla", "fused"):
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: ROADMAP queue 1, items 9 "
-            "and 12"
-        )
-    if engine not in ("auto", "freerun"):
-        raise ValueError("engine must be 'auto', 'freerun', 'xla' or 'fused'")
     if mesh is not None:
+        if use_fused:
+            raise ValueError("engine='fused' is single-chip; mesh unsupported")
         raise NotImplementedError(
             "mesh is not ported yet: ROADMAP queue 1, item 10 (multi-GPU)"
         )
@@ -112,11 +126,11 @@ def mcmcglm(
             "(on-device collection)"
         )
     kernel = qslice_fun if qslice_fun is not None else slice_fn
-    if kernel in _LATER_KERNELS:
+    if kernel in _LATER_KERNELS and not use_fused:
         raise NotImplementedError(
             f"slice_fn={kernel!r} is not ported yet: ROADMAP queue 1, item 7"
         )
-    if kernel not in _PORTED_KERNELS:
+    if kernel not in _PORTED_KERNELS + _LATER_KERNELS:
         raise ValueError(f"unknown slice kernel {kernel!r}")
 
     fam = check_family(family)
@@ -138,14 +152,40 @@ def mcmcglm(
     if fam.name == "gaussian" and "sd" not in extra:
         extra["sd"] = 1.0  # reference default: list(sd = 1)
 
-    engine_opts = dict(engine_opts or {})
-    if kernel == "quantile":
-        engine_opts.setdefault("slice_kernel", "quantile")
-    sampler = FreeRunCGGibbs(
-        design.X, design.y, fam, prior, extra=extra, tuning=tuning,
-        obs_weights=weights, dtype=dtype, offset=design.offset,
-        device=device, **engine_opts,
-    )
+    if use_fused:
+        eligible = (
+            isinstance(prior, IIDPrior)
+            and kernel == "stepping_out"
+            and linear_predictor_calc == "update"
+            and design.X.shape[0] <= MAX_FUSED_N
+            and n_chains % 8 == 0
+        )
+        if not eligible:
+            raise ValueError(
+                "engine='fused' requires stepping_out + iid prior + "
+                "linear_predictor_calc='update', n within the fused kernels' "
+                f"limit (MAX_FUSED_N={MAX_FUSED_N}), and n_chains a multiple "
+                "of 8"
+            )
+        if design.offset is not None:
+            raise ValueError(
+                "formula offset() terms are not supported by engine='fused'"
+            )
+        if weights is not None:
+            raise ValueError(
+                "observation weights are not supported by engine='fused'"
+            )
+        sampler = FusedCGGibbs(design.X, design.y, fam, prior, extra=extra,
+                               tuning=tuning, device=device)
+    else:
+        engine_opts = dict(engine_opts or {})
+        if kernel == "quantile":
+            engine_opts.setdefault("slice_kernel", "quantile")
+        sampler = FreeRunCGGibbs(
+            design.X, design.y, fam, prior, extra=extra, tuning=tuning,
+            obs_weights=weights, dtype=dtype, offset=design.offset,
+            device=device, **engine_opts,
+        )
 
     progress_cb = None
     if progress and chunk_size <= 0:
@@ -158,6 +198,14 @@ def mcmcglm(
                   end="" if done < total else "\n", flush=True)
 
     t0 = time.perf_counter()
+    if use_fused:
+        betas, nev, _ = sampler.sample(seed, n_samples, n_chains=n_chains,
+                                       chunk_size=chunk_size,
+                                       progress=progress_cb)
+        return _result(design, fam, extra, tuning, betas,
+                       np.broadcast_to(nev, (n_chains, n_samples)), burnin,
+                       sample_method, kernel, call, time.perf_counter() - t0,
+                       device)
     # adaptive burn-in (its draws are kept as the burn-in rows), then
     # frozen-width shrink-only sampling
     state = sampler.init(seed, n_chains)
@@ -186,8 +234,13 @@ def mcmcglm(
     cum = np.concatenate(nev_parts, axis=1)
     n_evals = np.diff(np.concatenate([nev_warm[:, None], cum], axis=1),
                       axis=1)
-    elapsed = time.perf_counter() - t0
+    return _result(design, fam, extra, tuning, betas, n_evals, burnin,
+                   sample_method, kernel, call, time.perf_counter() - t0,
+                   device)
 
+
+def _result(design, fam, extra, tuning, betas, n_evals, burnin,
+            sample_method, kernel, call, elapsed, device) -> MCMCGLM:
     return MCMCGLM(
         beta=betas,
         columns=list(design.columns),

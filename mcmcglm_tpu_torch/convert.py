@@ -13,7 +13,10 @@ imports JAX.  It undoes the JAX package's Pallas layouts:
 
 The JAX PRNG key does not carry over (the two packages use different
 generators): the port's state gets the ``torch.Generator`` passed in, or a
-fresh one seeded with 0.
+fresh one seeded with 0.  :func:`convert_fused_state` does the same for
+the fused engine: it cuts the padded eta back to n and takes the JAX
+state's ``seed_ctr`` as the port's Philox seed (the TPU stream itself does
+not carry over).
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["convert_state"]
+from .fused import FusedState
+
+__all__ = ["convert_fused_state", "convert_state"]
 
 _INT_FIELDS = ("j", "phase", "stepdir", "budL", "budR", "n_shrink", "nev")
 
@@ -48,3 +53,17 @@ def convert_state(jax_state, eng, generator=None):
         fields[name] = torch.tensor(a, dtype=dtype, device=eng.device)
     fields["key"] = eng._generator(0 if generator is None else generator)
     return eng.state_cls(**fields)
+
+
+def convert_fused_state(jax_state, eng):
+    """The port's ``FusedState`` for ``eng`` (a port ``FusedCGGibbs``) from
+    a JAX ``FusedState`` built on the same problem, at sweep 0."""
+    beta = np.asarray(jax_state.beta)
+    eta = np.asarray(jax_state.eta)[:, : eng.n]
+    f32 = torch.float32
+    return FusedState(
+        beta=torch.tensor(beta, dtype=f32, device=eng.device),
+        eta=torch.tensor(eta, dtype=f32, device=eng.device),
+        seed=int(np.asarray(jax_state.seed_ctr)),
+        sweep=0,
+    )

@@ -13,7 +13,10 @@
 //   lsum[c,k] = sum_i  m_i != 0 ? ld(eta[c,i] + x[c,i] * delta[c,k], y_i) * m_i : 0
 //
 // with ld the relative log density of one built-in family/link pair (a
-// compile-time FAM id; the Python side keeps the table of ids).  The mask
+// compile-time FAM id from families.cuh; the Python side keeps the table of
+// ids).  With the gather, the X^T rows are float32 or bfloat16 (the
+// x_storage="bf16" row stream of build_battery3): a bf16 row is upcast in
+// registers, exactly, and every product is then float32.  The mask
 // is applied by selection, not multiplication, as the TPU kernels do, so a
 // non-finite density at a zero-weight observation cannot leak into a sum.
 // With COMMIT, thread 0 replays the first-acceptor decision from the very
@@ -41,64 +44,29 @@
 // correct version; making it fast (more chains per block, vector loads,
 // overlapping the second read of the row) is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "families.cuh"
+
 namespace {
+
+using namespace mcmcglm;
 
 constexpr int KMAX = 32;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
-// family/link ids: keep in step with KERNEL_FAMILIES in
-// mcmcglm_tpu_torch/ops/freerun_batteries.py
-enum : int {
-  FAM_GAUSSIAN_IDENTITY = 0,
-  FAM_BINOMIAL_LOGIT = 1,
-  FAM_POISSON_LOG = 2,
-  FAM_NEGBIN_LOG = 3,
-  FAM_GAMMA_LOG = 4,
-  FAM_BINOMIAL_CLOGLOG = 5,
-};
-
-// softplus(x) = log(1 + exp(x)), spelled as torch.logaddexp(x, 0) computes it
-__device__ __forceinline__ float softplus(float x) {
-  return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-// relative per-observation log density; p is the family's scalar extra
-// argument (gaussian sd, negative-binomial size, gamma shape)
-template <int FAM>
-__device__ __forceinline__ float ld_rel(float e, float y, float p) {
-  if (FAM == FAM_GAUSSIAN_IDENTITY) {  // -0.5 z^2, z = (y - e) / sd
-    const float z = __fdiv_rn(__fsub_rn(y, e), p);
-    return __fmul_rn(__fmul_rn(-0.5f, z), z);
-  } else if (FAM == FAM_BINOMIAL_LOGIT) {  // y e - softplus(e)
-    return __fsub_rn(__fmul_rn(y, e), softplus(e));
-  } else if (FAM == FAM_POISSON_LOG) {  // y e - exp(e)
-    return __fsub_rn(__fmul_rn(y, e), expf(e));
-  } else if (FAM == FAM_NEGBIN_LOG) {
-    // r (log r - lrm) + y (e - lrm), lrm = log r + softplus(e - log r)
-    const float log_r = logf(p);
-    const float lrm = __fadd_rn(log_r, softplus(__fsub_rn(e, log_r)));
-    return __fadd_rn(__fmul_rn(p, __fsub_rn(log_r, lrm)),
-                     __fmul_rn(y, __fsub_rn(e, lrm)));
-  } else if (FAM == FAM_GAMMA_LOG) {  // -k e - k y exp(-e)
-    return __fsub_rn(__fmul_rn(-p, e), __fmul_rn(__fmul_rn(p, y), expf(-e)));
-  } else {  // FAM_BINOMIAL_CLOGLOG
-    const float ex = expf(e);
-    const float tiny = 1.17549435e-38f;
-    const float log_mu =
-        ex > 1e-3f ? logf(fmaxf(__fsub_rn(1.f, expf(-ex)), tiny))
-                   : __fsub_rn(e, __fmul_rn(0.5f, ex));
-    return y > 0.5f ? log_mu : -ex;
-  }
-}
-
-template <int FAM, bool GATHER, bool COMMIT>
+template <int FAM, bool GATHER, bool COMMIT, typename XT>
 __global__ void __launch_bounds__(THREADS)
 battery_kernel(const float* __restrict__ eta,     // (C, n)
-               const float* __restrict__ xsrc,    // (C, n) rows, or Xt (d, n)
+               const XT* __restrict__ xsrc,       // (C, n) rows, or Xt (d, n)
                const int32_t* __restrict__ jidx,  // (C,) with GATHER
                int d,                             // rows of Xt with GATHER
                const float* __restrict__ deltas,  // (C, K)
@@ -116,7 +84,7 @@ battery_kernel(const float* __restrict__ eta,     // (C, n)
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const float* er = eta + (size_t)c * n;
-  const float* xr;
+  const XT* xr;
   bool row_ok = true;
   if (GATHER) {
     const int j = jidx[c];
@@ -134,7 +102,7 @@ battery_kernel(const float* __restrict__ eta,     // (C, n)
 
   for (int i = tid; i < n; i += THREADS) {
     const float e0 = er[i];
-    const float x = xr[i];
+    const float x = to_f32(xr[i]);
     const float yv = y[i];
     const float mv = m[i];
 #pragma unroll
@@ -195,12 +163,12 @@ battery_kernel(const float* __restrict__ eta,     // (C, n)
     const float ds = s_dstar;
     float* out = eta_new + (size_t)c * n;
     for (int i = tid; i < n; i += THREADS)
-      out[i] = __fadd_rn(er[i], __fmul_rn(xr[i], ds));
+      out[i] = __fadd_rn(er[i], __fmul_rn(to_f32(xr[i]), ds));
   }
 }
 
-template <bool GATHER, bool COMMIT>
-int launch(int fam, const float* eta, const float* xsrc, const int32_t* jidx,
+template <bool GATHER, bool COMMIT, typename XT = float>
+int launch(int fam, const float* eta, const XT* xsrc, const int32_t* jidx,
            int d, const float* deltas, const float* fprior, const float* scal,
            const float* y, const float* m, float* lsum, float* eta_new,
            int C, int n, int K, float param, void* stream) {
@@ -209,17 +177,12 @@ int launch(int fam, const float* eta, const float* xsrc, const int32_t* jidx,
   const dim3 grid(C), block(THREADS);
 #define MCMCGLM_BATTERY_CASE(F)                                             \
   case F:                                                                   \
-    battery_kernel<F, GATHER, COMMIT><<<grid, block, 0, s>>>(               \
+    battery_kernel<F, GATHER, COMMIT, XT><<<grid, block, 0, s>>>(           \
         eta, xsrc, jidx, d, deltas, fprior, scal, y, m, lsum, eta_new, n,   \
         K, param);                                                          \
     break;
   switch (fam) {
-    MCMCGLM_BATTERY_CASE(FAM_GAUSSIAN_IDENTITY)
-    MCMCGLM_BATTERY_CASE(FAM_BINOMIAL_LOGIT)
-    MCMCGLM_BATTERY_CASE(FAM_POISSON_LOG)
-    MCMCGLM_BATTERY_CASE(FAM_NEGBIN_LOG)
-    MCMCGLM_BATTERY_CASE(FAM_GAMMA_LOG)
-    MCMCGLM_BATTERY_CASE(FAM_BINOMIAL_CLOGLOG)
+    MCMCGLM_FOR_EACH_FAMILY(MCMCGLM_BATTERY_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -265,4 +228,20 @@ extern "C" int battery_gather_commit(const int32_t* j, const float* Xt, int d,
                                      void* stream) {
   return launch<true, true>(fam, eta, Xt, j, d, deltas, fprior, scal, y, m,
                             lsum, eta_new, C, n, K, param, stream);
+}
+
+// build_battery3 with x_storage="bf16": the same kernel on bfloat16 X^T rows
+extern "C" int battery_gather_commit_bf16(const int32_t* j,
+                                          const __nv_bfloat16* Xt, int d,
+                                          const float* eta,
+                                          const float* deltas,
+                                          const float* fprior,
+                                          const float* scal, const float* y,
+                                          const float* m, float* lsum,
+                                          float* eta_new, int C, int n, int K,
+                                          int fam, float param,
+                                          void* stream) {
+  return launch<true, true, __nv_bfloat16>(fam, eta, Xt, j, d, deltas,
+                                           fprior, scal, y, m, lsum, eta_new,
+                                           C, n, K, param, stream);
 }

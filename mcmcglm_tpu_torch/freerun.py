@@ -161,15 +161,11 @@ class FreeRunCGGibbs:
                 f"coord_sampler must be 'slice' or 'conjugate', got "
                 f"{coord_sampler!r}"
             )
-        if x_storage == "bf16":
-            raise NotImplementedError(
-                "x_storage='bf16' is not ported yet: ROADMAP queue 2 "
-                "(the bf16 row stream of the gather battery)"
-            )
-        if x_storage != "f32":
+        if x_storage not in ("f32", "bf16"):
             raise ValueError(
                 f"x_storage must be 'f32' or 'bf16', got {x_storage!r}"
             )
+        self.x_storage = x_storage
         self.device = _resolve_device(device)
         self.slice_kernel = slice_kernel
         self.coord_sampler = coord_sampler
@@ -184,6 +180,13 @@ class FreeRunCGGibbs:
         self.dtype = dtype
         dev = self.device
         X = _tensor(X, dtype, "cpu")
+        if x_storage == "bf16":
+            # the design is rounded to bfloat16 ONCE, up front, and every
+            # path (the init product, the plain battery's row gathers, the
+            # cuda3 kernel's bf16 row stream) computes on the same rounded
+            # values: the engine samples the posterior of X' = bf16(X)
+            # exactly, and no chain freezes a residual (X - X') beta0
+            X = X.to(torch.bfloat16).to(dtype)
         self.n, self.d = X.shape
         if offset is not None:
             offset = _tensor(offset, dtype, dev).reshape(-1)
@@ -276,6 +279,11 @@ class FreeRunCGGibbs:
             raise ValueError(f"spec_k must be in [1, 32], got {spec_k}")
         self.state_cls = QuantileState if self.q_adapt else FreeRunState
         configure_battery(self, battery_impl, user_reduce_fn=user_reduce_fn)
+        # the rows the cuda3 kernel streams: bfloat16 under x_storage="bf16"
+        # (half the row bytes; the values are already rounded, so the
+        # kernel's upcast reproduces the float32 rows exactly)
+        bf16_rows = x_storage == "bf16" and self.battery_impl == "cuda3"
+        self._Xt_rows = self.Xt.to(torch.bfloat16) if bf16_rows else self.Xt
 
     def _coord_lp(self, beta, j, b):
         return self.prior.coord_log_prob(beta, j, b).to(self.dtype)

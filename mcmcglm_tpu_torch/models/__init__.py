@@ -10,4 +10,15 @@ from .families import (
     register_family,
 )
 from .links import Link, get_link, register_link
-from .priors import BetaPrior, Distribution, IIDPrior, Normal, make_beta_prior
+from .priors import (
+    BetaPrior,
+    Distribution,
+    Exponential,
+    Gamma,
+    IIDPrior,
+    Laplace,
+    Normal,
+    StudentT,
+    Uniform,
+    make_beta_prior,
+)

@@ -1,10 +1,12 @@
 """Prior distributions over GLM coefficient vectors, on torch tensors.
 
-Counterpart of ``mcmcglm_tpu/models/priors.py`` for the priors the main
-path uses: :class:`Normal` and :class:`IIDPrior`.  The port's prior API is
-batched over chains (the JAX package's is per chain and vmapped):
+Counterpart of ``mcmcglm_tpu/models/priors.py`` for the six univariate
+distributions and :class:`IIDPrior`.  The port's prior API is batched over
+chains (the JAX package's is per chain and vmapped):
 ``coord_log_prob(beta, j, b)`` takes ``beta`` (C, d), ``j`` (C,) and
-proposals ``b`` of shape (C,) or (C, K).
+proposals ``b`` of shape (C,) or (C, K).  The support rules are the JAX
+package's: Gamma is -inf for x <= 0, Exponential for x < 0, Uniform
+outside [low, high].
 """
 
 from __future__ import annotations
@@ -17,6 +19,11 @@ import torch
 __all__ = [
     "Distribution",
     "Normal",
+    "Gamma",
+    "Exponential",
+    "StudentT",
+    "Laplace",
+    "Uniform",
     "BetaPrior",
     "IIDPrior",
     "make_beta_prior",
@@ -27,6 +34,10 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 def _f(value, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _neg_inf_outside(inside: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
+    return torch.where(inside, lp, torch.full_like(lp, -math.inf))
 
 
 class Distribution:
@@ -66,6 +77,133 @@ class Normal(Distribution):
 
     def variance(self):
         return self.scale**2
+
+
+@dataclasses.dataclass(frozen=True)
+class Gamma(Distribution):
+    """Gamma(shape, rate)."""
+
+    concentration: float = 1.0
+    rate: float = 1.0
+
+    def log_prob(self, x):
+        a = _f(self.concentration, x)
+        r = _f(self.rate, x)
+        xin = torch.clamp(x, min=torch.finfo(x.dtype).tiny)
+        lp = (a * torch.log(r) - torch.lgamma(a) + (a - 1.0) * torch.log(xin)
+              - r * xin)
+        return _neg_inf_outside(x > 0, lp)
+
+    def sample(self, generator, shape, *, dtype, device):
+        alpha = torch.full(shape, float(self.concentration), dtype=dtype,
+                           device=device)
+        return torch._standard_gamma(alpha, generator=generator) / self.rate
+
+    def mean(self):
+        return self.concentration / self.rate
+
+    def variance(self):
+        return self.concentration / self.rate**2
+
+
+@dataclasses.dataclass(frozen=True)
+class Exponential(Distribution):
+    """Exponential(rate)."""
+
+    rate: float = 1.0
+
+    def log_prob(self, x):
+        r = _f(self.rate, x)
+        return _neg_inf_outside(x >= 0, torch.log(r) - r * x)
+
+    def sample(self, generator, shape, *, dtype, device):
+        e = torch.empty(shape, dtype=dtype, device=device)
+        return e.exponential_(generator=generator) / self.rate
+
+    def mean(self):
+        return 1.0 / self.rate
+
+    def variance(self):
+        return 1.0 / self.rate**2
+
+
+@dataclasses.dataclass(frozen=True)
+class StudentT(Distribution):
+    """Student-t(df, loc, scale)."""
+
+    df: float = 1.0
+    loc: float = 0.0
+    scale: float = 1.0
+
+    def log_prob(self, x):
+        v = _f(self.df, x)
+        z = (x - _f(self.loc, x)) / _f(self.scale, x)
+        return (
+            torch.lgamma((v + 1.0) / 2.0)
+            - torch.lgamma(v / 2.0)
+            - 0.5 * torch.log(v * _f(math.pi, x))
+            - torch.log(_f(self.scale, x))
+            - (v + 1.0) / 2.0 * torch.log1p(z * z / v)
+        )
+
+    def sample(self, generator, shape, *, dtype, device):
+        # t = z / sqrt(chi2_df / df), chi2_df = 2 Gamma(df / 2)
+        z = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        half = torch.full(shape, 0.5 * float(self.df), dtype=dtype,
+                          device=device)
+        chi2 = 2.0 * torch._standard_gamma(half, generator=generator)
+        return self.loc + self.scale * z / torch.sqrt(chi2 / self.df)
+
+    def mean(self):
+        return self.loc  # defined for df > 1
+
+    def variance(self):
+        return self.scale**2 * self.df / (self.df - 2.0)  # defined for df > 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Laplace(Distribution):
+    """Laplace(loc, scale)."""
+
+    loc: float = 0.0
+    scale: float = 1.0
+
+    def log_prob(self, x):
+        b = _f(self.scale, x)
+        return -torch.abs(x - _f(self.loc, x)) / b - torch.log(2.0 * b)
+
+    def sample(self, generator, shape, *, dtype, device):
+        # the difference of two unit exponentials is a unit Laplace
+        e = torch.empty((2, *shape), dtype=dtype, device=device)
+        e.exponential_(generator=generator)
+        return self.loc + self.scale * (e[0] - e[1])
+
+    def mean(self):
+        return self.loc
+
+    def variance(self):
+        return 2.0 * self.scale**2
+
+
+@dataclasses.dataclass(frozen=True)
+class Uniform(Distribution):
+    low: float = 0.0
+    high: float = 1.0
+
+    def log_prob(self, x):
+        width = _f(self.high - self.low, x)
+        inside = (x >= self.low) & (x <= self.high)
+        return _neg_inf_outside(inside, (-torch.log(width)).expand_as(x))
+
+    def sample(self, generator, shape, *, dtype, device):
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+        return self.low + (self.high - self.low) * u
+
+    def mean(self):
+        return 0.5 * (self.low + self.high)
+
+    def variance(self):
+        return (self.high - self.low) ** 2 / 12.0
 
 
 class BetaPrior:

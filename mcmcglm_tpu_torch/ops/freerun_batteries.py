@@ -65,6 +65,7 @@ launch_counts = {
     "battery_sums": 0,
     "battery_commit": 0,
     "battery_gather_commit": 0,
+    "battery_gather_commit_bf16": 0,
 }
 
 
@@ -165,9 +166,9 @@ def _prepare(eta, deltas, y, m, family, extra):
     _check("deltas", deltas, (C, K), f32, eta.device)
     _check("y", y, (n,), f32, eta.device)
     _check("m", m, (n,), f32, eta.device)
-    from ._build import load_battery_library
+    from ._build import load_library
 
-    return load_battery_library(), C, n, K, kf[0], kf[1]
+    return load_library(), C, n, K, kf[0], kf[1]
 
 
 def _raise_on(err, name):
@@ -222,9 +223,12 @@ def battery_commit(eta, xg, deltas, fprior, scal, y, m, family, extra):
 def battery_gather_commit(j, Xt, eta, deltas, fprior, scal, y, m, family,
                           extra):
     """:func:`battery_commit` with the row gather ``Xt[j_c]`` done inside
-    the kernel (replaces ``build_battery3``).  j (C,) int32, Xt (d, n)."""
+    the kernel (replaces ``build_battery3``).  j (C,) int32, Xt (d, n)
+    float32 or bfloat16 (``x_storage="bf16"``: the kernel upcasts each row
+    in registers, and its launches count as
+    ``"battery_gather_commit_bf16"``)."""
     if eta.device.type == "cpu":
-        return plain_battery(eta, Xt[j.long()], deltas, y,
+        return plain_battery(eta, Xt[j.long()].to(eta.dtype), deltas, y,
                              _ld_fn(family, extra),
                              lambda t: masked_sum(t, m), fprior, scal)
     lib, C, n, K, fid, param = _prepare(eta, deltas, y, m, family, extra)
@@ -232,21 +236,24 @@ def battery_gather_commit(j, Xt, eta, deltas, fprior, scal, y, m, family,
         raise ValueError("Xt must be (d, n)")
     d = Xt.shape[0]
     _check("j", j, (C,), torch.int32, eta.device)
-    _check("Xt", Xt, (d, n), torch.float32, eta.device)
+    bf16 = Xt.dtype == torch.bfloat16
+    _check("Xt", Xt, (d, n), torch.bfloat16 if bf16 else torch.float32,
+           eta.device)
     _check("fprior", fprior, (C, K), torch.float32, eta.device)
     _check("scal", scal, (C, 4), torch.float32, eta.device)
     lsum = torch.empty((C, K), dtype=torch.float32, device=eta.device)
     eta_new = torch.empty_like(eta)
+    name = "battery_gather_commit_bf16" if bf16 else "battery_gather_commit"
     with torch.cuda.device(eta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.battery_gather_commit(
+        err = getattr(lib, name)(
             j.data_ptr(), Xt.data_ptr(), d, eta.data_ptr(),
             deltas.data_ptr(), fprior.data_ptr(), scal.data_ptr(),
             y.data_ptr(), m.data_ptr(), lsum.data_ptr(), eta_new.data_ptr(),
             C, n, K, fid, param, stream,
         )
-    _raise_on(err, "battery_gather_commit")
-    launch_counts["battery_gather_commit"] += 1
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return lsum, eta_new
 
 

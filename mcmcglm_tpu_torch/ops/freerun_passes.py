@@ -289,8 +289,8 @@ def run_pass_spec(eng, s, sweep_count, draws, nevbuf, n_sweeps: int,
             1)
         if impl == "cuda3":  # row gather inside the kernel
             lsum_abs, eta_committed = battery_gather_commit(
-                s.j, eng.Xt, s.eta, deltas, fprior, scal, eng.y, eng._mask,
-                eng.family, eng._extra_host)
+                s.j, eng._Xt_rows, s.eta, deltas, fprior, scal, eng.y,
+                eng._mask, eng.family, eng._extra_host)
         else:
             xg = eng.Xt[s.j.long()]
             lsum_abs, eta_committed = battery_commit(

@@ -1,4 +1,5 @@
-"""The CUDA battery kernels and the engine on the card.
+"""The CUDA kernels (batteries and fused coordinate updates) and the
+engines on the card.
 
 Every test here needs a CUDA GPU and skips elsewhere.  On the card run
 
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import mcmcglm_tpu_torch as mt  # noqa: E402
 from mcmcglm_tpu_torch.ops import freerun_batteries as fb  # noqa: E402
+from mcmcglm_tpu_torch.ops import fused_cggibbs as fc  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -96,9 +98,18 @@ def test_kernels_match_plain(cuda, pair, C, n, K):
     l3, e3 = fb.battery_gather_commit(a["j"], a["Xt"], a["eta"], a["deltas"],
                                       a["fprior"], a["scal"], a["y"], a["m"],
                                       fam, extra)
+    l16, e16 = fb.battery_gather_commit(a["j"], a["Xt"].to(torch.bfloat16),
+                                        a["eta"], a["deltas"], a["fprior"],
+                                        a["scal"], a["y"], a["m"], fam, extra)
     torch.cuda.synchronize()
     for k in fb.launch_counts:
         assert fb.launch_counts[k] == before[k] + 1
+    # bf16 rows: the same kernel on the rounded rows, exactly
+    xr = a["Xt"].to(torch.bfloat16).float()
+    l3r, e3r = fb.battery_gather_commit(a["j"], xr, a["eta"], a["deltas"],
+                                        a["fprior"], a["scal"], a["y"],
+                                        a["m"], fam, extra)
+    assert torch.equal(l16, l3r) and torch.equal(e16, e3r)
     lsum_p, eta_p = plain(fprior=a["fprior"], scal=a["scal"])
     for lsum in (s_k, l2, l3):
         torch.testing.assert_close(lsum, lsum_p, rtol=2e-5, atol=2e-3)
@@ -191,3 +202,150 @@ def test_auto_resolves_to_cuda3_and_mcmcglm_runs(cuda):
     post_mean = np.linalg.solve(X.T @ X + np.eye(3), X.T @ y)
     coef = fit.post_burnin().reshape(-1, 3).mean(0)
     np.testing.assert_allclose(coef, post_mean, atol=0.03)
+
+
+# -- the fused coordinate kernels ------------------------------------------
+
+PRIORS = [mt.Normal(0.2, 1.5), mt.Gamma(2.0, 1.0), mt.Exponential(1.5),
+          mt.StudentT(3.0, 0.0, 1.0), mt.Laplace(0.0, 0.7),
+          mt.Uniform(-3.0, 3.0)]
+
+
+def _fused_engine(pair, prior, C, n, d, device, block_chains=8, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)) / math.sqrt(d)
+    name = pair[0]
+    y = {"binomial": lambda: rng.binomial(1, 0.4, size=n),
+         "gaussian": lambda: rng.normal(size=n),
+         "Gamma": lambda: rng.gamma(2.0, 1.0, size=n) + 0.05}.get(
+        name, lambda: rng.poisson(2.0, size=n))()
+    fam = mt.check_family(name).with_link(pair[1])
+    eng = mt.FusedCGGibbs(X, y, fam, mt.IIDPrior(prior, d),
+                          extra=FAMILY_EXTRA[pair], tuning={"w": 0.5},
+                          block_chains=block_chains, device=device)
+    assert eng.impl == "cuda"
+    return eng, eng.init(seed, C)
+
+
+def _assert_fused_matches_plain(got, want, margin, block_chains):
+    """nev identical, beta and eta within 1e-5, except chains whose plain
+    run evaluated g within 1e-3 of the level (their block, for nev)."""
+    excused = margin <= 1e-3
+    block = excused.view(-1, block_chains).any(1).repeat_interleave(
+        block_chains)
+    assert torch.equal(got[2][~block], want[2][~block])
+    keep = ~excused
+    torch.testing.assert_close(got[1][keep], want[1][keep], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(got[0][keep], want[0][keep], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("prior", PRIORS, ids=lambda p: type(p).__name__)
+@pytest.mark.parametrize("pair", list(FAMILY_EXTRA))
+def test_fused_kernels_match_plain(cuda, pair, prior):
+    C, n, d = 16, 257, 3
+    eng, st = _fused_engine(pair, prior, C, n, d, cuda)
+    kw = dict(seed=st.seed, sweep=2, w=0.5, block_chains=8)
+    fns = eng._plain_fns()
+    before = dict(fc.launch_counts)
+    got = fc.fused_sweep(st.eta, st.beta, eng.Xt, eng.y, eng.family,
+                         eng.extra, prior, **kw)
+    want = fc.plain_fused_sweep(st.eta, st.beta, eng.Xt, eng.y, **fns, **kw)
+    _assert_fused_matches_plain(got, want[:3], want[3], 8)
+    # the sweep kernel is d coordinate launches, bitwise
+    eta, beta = st.eta, st.beta.clone()
+    nev = torch.zeros_like(got[2])
+    for j in range(d):
+        eta, bj, nev_j = fc.fused_coord_update(
+            eta, beta[:, j].contiguous(), eng.Xt[j], eng.y, eng.family,
+            eng.extra, prior, j=j, **kw)
+        beta[:, j] = bj
+        nev += nev_j
+    torch.cuda.synchronize()
+    assert torch.equal(eta, got[0]) and torch.equal(beta, got[1])
+    assert torch.equal(nev, got[2])
+    assert fc.launch_counts["fused_sweep"] == before["fused_sweep"] + 1
+    assert (fc.launch_counts["fused_coord_update"]
+            == before["fused_coord_update"] + d)
+
+
+@pytest.mark.parametrize("C,n,block_chains", [(8, 1, 8), (24, 1003, 8),
+                                              (32, 4099, 16), (32, 300, 32)])
+def test_fused_kernels_at_ragged_shapes(cuda, C, n, block_chains):
+    pair = ("binomial", "logit")
+    eng, st = _fused_engine(pair, mt.Normal(), C, n, 4, cuda,
+                            block_chains=block_chains)
+    kw = dict(seed=st.seed, sweep=0, w=0.5, block_chains=block_chains)
+    got = fc.fused_sweep(st.eta, st.beta, eng.Xt, eng.y, eng.family,
+                         eng.extra, eng.prior.dist, **kw)
+    want = fc.plain_fused_sweep(st.eta, st.beta, eng.Xt, eng.y,
+                                **eng._plain_fns(), **kw)
+    _assert_fused_matches_plain(got, want[:3], want[3], block_chains)
+
+
+def test_fused_wrappers_reject_bad_operands(cuda):
+    eng, st = _fused_engine(("binomial", "logit"), mt.Normal(), 16, 100, 3,
+                            cuda)
+    args = (st.eta, st.beta, eng.Xt, eng.y, eng.family, eng.extra)
+    kw = dict(seed=0, sweep=0, w=0.5)
+    with pytest.raises(ValueError, match="block_chains"):
+        fc.fused_sweep(*args, mt.Normal(), block_chains=5, **kw)
+    with pytest.raises(ValueError, match="KERNEL_PRIORS"):
+        fc.fused_sweep(*args, object(), **kw)
+    with pytest.raises(ValueError, match="KERNEL_FAMILIES"):
+        fc.fused_sweep(st.eta, st.beta, eng.Xt, eng.y,
+                       mt.check_family("inverse_gaussian"), {}, mt.Normal(),
+                       **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        fc.fused_sweep(st.eta, st.beta.double(), eng.Xt, eng.y, eng.family,
+                       eng.extra, mt.Normal(), **kw)
+    big = torch.zeros(8, fc.MAX_FUSED_N + 1, device=cuda)
+    with pytest.raises(ValueError, match="MAX_FUSED_N"):
+        fc.fused_coord_update(big, st.beta[:8, 0].contiguous(), big[0],
+                              big[0], eng.family, eng.extra, mt.Normal(),
+                              j=0, **kw)
+    # a family outside the kernel table runs the plain version, by name
+    X = np.random.default_rng(0).uniform(0.5, 1.5, size=(50, 2))
+    e2 = mt.FusedCGGibbs(X, X[:, 0] + 1.0, "inverse_gaussian",
+                         mt.IIDPrior(mt.Normal(), 2), tuning={"w": 0.5},
+                         device=cuda)
+    assert e2.impl == "torch" and "KERNEL_FAMILIES" in e2.impl_reason
+
+
+def test_fused_gaussian_oracle_and_mcmcglm(cuda):
+    rng = np.random.default_rng(0)
+    n, d = 200, 3
+    X = np.column_stack([np.ones(n), rng.normal(size=(n, 2))])
+    y = rng.normal(X @ np.array([1.0, 1.5, 2.0]), 1.0)
+    eng = mt.FusedCGGibbs(X, y, "gaussian", mt.IIDPrior(mt.Normal(0, 1), d),
+                          extra={"sd": 1.0}, tuning={"w": 0.5}, device=cuda)
+    betas, _, st = eng.sample(0, 300, n_chains=32)
+    post = betas[:, 101:, :].reshape(-1, d)
+    prec = X.T @ X + np.eye(d)
+    mu = np.linalg.solve(prec, X.T @ y)
+    sd = np.sqrt(np.diag(np.linalg.inv(prec)))
+    np.testing.assert_allclose(post.mean(0), mu, atol=float(6 * sd.max() / 50))
+    np.testing.assert_allclose(post.std(0), sd, rtol=0.3)
+    eta_ref = st.beta.double() @ eng.Xt.double()
+    assert float((st.eta.double() - eta_ref).abs().max()) < 1e-3
+    fit = mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, engine="fused",
+                     n_samples=300, burnin=100, n_chains=16)
+    np.testing.assert_allclose(fit.post_burnin().reshape(-1, d).mean(0), mu,
+                               atol=0.03)
+
+
+def test_bf16_engine_streams_bf16_rows(cuda):
+    X, y, _ = mt.generate_glm_data("binomial", n=1000, d=8, seed=0)
+    fr = mt.FreeRunCGGibbs(X, y, "binomial", mt.IIDPrior(mt.Normal(), 8),
+                           tuning={"w": 0.5}, x_storage="bf16", device=cuda)
+    assert fr.battery_impl == "cuda3"
+    assert fr._Xt_rows.dtype == torch.bfloat16
+    assert torch.equal(fr._Xt_rows.float(), fr.Xt)
+    fb.reset_launch_counts()
+    st = fr.init(0, 16)
+    st, draws, _ = fr.run(st, 3)
+    assert fb.launch_counts["battery_gather_commit_bf16"] > 0
+    assert fb.launch_counts["battery_gather_commit"] == 0
+    eta_ref = st.beta.double() @ fr.Xt.double()
+    assert float((st.eta.double() - eta_ref).abs().max()) < 1e-3

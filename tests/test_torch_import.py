@@ -16,7 +16,8 @@ import mcmcglm_tpu_torch as mt  # noqa: E402
 def test_import_loads_neither_jax_nor_triton():
     code = (
         "import sys, mcmcglm_tpu_torch, mcmcglm_tpu_torch.ops.freerun_passes, "
-        "mcmcglm_tpu_torch.ops._build, mcmcglm_tpu_torch.convert; "
+        "mcmcglm_tpu_torch.ops._build, mcmcglm_tpu_torch.convert, "
+        "mcmcglm_tpu_torch.ops.fused_cggibbs, mcmcglm_tpu_torch.fused; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'mcmcglm_tpu')]; "
         "print(','.join(bad)); sys.exit(1 if bad else 0)"
@@ -36,7 +37,7 @@ def _problem(n=50, d=3):
     (dict(slice_kernel="latent"), "item 7"),
     (dict(slice_kernel="doubling"), "item 7"),
     (dict(coord_sampler="conjugate"), "item 7"),
-    (dict(x_storage="bf16"), "queue 2"),
+    (dict(slice_kernel="elliptical"), "item 7"),
 ])
 def test_engine_names_unported_options(kw, item):
     X, y = _problem()
@@ -46,7 +47,7 @@ def test_engine_names_unported_options(kw, item):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="xla"), dict(engine="fused"), dict(thin=2),
+    dict(engine="xla"), dict(slice_fn="doubling"), dict(thin=2),
     dict(sample_method="normal-normal"), dict(slice_fn="elliptical"),
     dict(linear_predictor_calc="naive"),
 ])
