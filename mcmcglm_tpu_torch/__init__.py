@@ -1,11 +1,11 @@
 """mcmcglm_tpu_torch: the PyTorch + CUDA port of ``mcmcglm_tpu``.
 
 The port runs the free-running CGGibbs sampler (``FreeRunCGGibbs``) with
-the stepping-out and quantile slice kernels on a CUDA GPU, its speculative
-proposal batteries in hand-written CUDA kernels
-(``csrc/freerun_battery.cu``), and the fused engine (``FusedCGGibbs``,
-``engine="fused"``) whose coordinate updates are hand-written CUDA kernels
-too (``csrc/fused_cggibbs.cu``).  It imports torch and never JAX; the JAX
+all six slice kernels and the exact conjugate coordinate draws on a CUDA
+GPU, a block of passes per CUDA graph replay, its speculative proposal
+batteries in hand-written CUDA kernels (``csrc/freerun_battery.cu``), and
+the fused engine (``FusedCGGibbs``, ``engine="fused"``) whose coordinate
+updates are hand-written CUDA kernels too (``csrc/fused_cggibbs.cu``).  It imports torch and never JAX; the JAX
 package stays the reference that the port's tests hold it against.  What
 is not ported yet raises NotImplementedError naming its ROADMAP item.
 """
@@ -29,6 +29,7 @@ from .models import (
     Laplace,
     Link,
     Normal,
+    StackedPrior,
     StudentT,
     Uniform,
     binomial,

@@ -2,10 +2,12 @@
 
 Counterpart of ``mcmcglm_tpu/api.py``: formula + data (or ``X=``/``y=``
 arrays) + family + beta_prior + slice tuning, returning an
-:class:`~.results.MCMCGLM`.  ``engine`` "auto" and "freerun" route to the
-port's :class:`~.freerun.FreeRunCGGibbs` (the JAX package's
-``engine="auto"`` choice for these kernels): adaptive burn-in, then
-frozen-width sampling.  ``engine="fused"`` routes to
+:class:`~.results.MCMCGLM`.  ``engine`` "auto" and "freerun" route all six
+slice kernels to the port's :class:`~.freerun.FreeRunCGGibbs` (the JAX
+package's ``engine="auto"`` choice): adaptive burn-in, then frozen-width
+sampling, or with ``thin > 1`` thinned collection (``run_thinned``).
+``sample_method="normal-normal"`` with ``engine="freerun"`` runs its exact
+conjugate pass.  ``engine="fused"`` routes to
 :class:`~.fused.FusedCGGibbs` under the JAX package's eligibility rule,
 with the fused kernels' n limit in place of the TPU's VMEM budget.
 
@@ -32,8 +34,8 @@ from .results import MCMCGLM
 
 __all__ = ["mcmcglm"]
 
-_PORTED_KERNELS = ("stepping_out", "quantile")
-_LATER_KERNELS = ("doubling", "latent", "elliptical", "genelliptical")
+_KERNELS = ("stepping_out", "quantile", "doubling", "latent", "elliptical",
+            "genelliptical")
 
 
 def mcmcglm(
@@ -70,14 +72,16 @@ def mcmcglm(
     """Draw MCMC samples from a GLM posterior with the CGGibbs sampler.
 
     The argument surface is the JAX package's ``mcmcglm`` plus ``device``.
-    Ported: ``slice_fn`` "stepping_out" and "quantile" with
-    ``linear_predictor_calc="update"`` on the free-running engine
-    (``engine`` "auto" or "freerun"), and the fused engine
-    (``engine="fused"``: stepping-out, an IID prior, n within
+    Ported: every ``slice_fn`` with ``linear_predictor_calc="update"`` on
+    the free-running engine (``engine`` "auto" or "freerun"; doubling
+    drops ``spec_k``), ``thin > 1`` there (thinned collection, the kept
+    draws after the init row and ``burnin`` 0), the "normal-normal"
+    method with ``engine="freerun"`` (the exact conjugate pass), and the
+    fused engine (``engine="fused"``: stepping-out, an IID prior, n within
     ``MAX_FUSED_N``, ``n_chains`` a multiple of 8; ``n_evals`` is the
     evaluations of each sweep summed over chains, broadcast to
-    (n_chains, n_samples)).  The other kernels, the "normal-normal"
-    method, the lockstep engine, ``thin > 1`` and ``mesh`` raise
+    (n_chains, n_samples)).  The lockstep engine (``engine="xla"``, the
+    "naive" mode, "normal-normal" under "auto") and ``mesh`` raise
     NotImplementedError naming their ROADMAP item.
     ``adapt_w`` is accepted for signature parity: the free-running engine
     always adapts its widths during burn-in.
@@ -94,10 +98,14 @@ def mcmcglm(
             "mcmcglm(device='cuda') needs a CUDA device; pass device='cpu' "
             "to run on the CPU"
         )
-    if sample_method != "slice_sampling":
+    conjugate = sample_method == "normal-normal" and engine == "freerun"
+    if sample_method not in ("slice_sampling", "normal-normal"):
+        raise ValueError(f"unknown sample_method {sample_method!r}")
+    if sample_method == "normal-normal" and not conjugate:
         raise NotImplementedError(
-            f"sample_method={sample_method!r} is not ported yet: ROADMAP "
-            "queue 1, items 7 and 9 (conjugate pass, lockstep engine)"
+            f"sample_method='normal-normal' with engine={engine!r} runs the "
+            "lockstep engine, which is not ported yet: ROADMAP queue 1, "
+            "item 9 (engine='freerun' runs the exact conjugate pass)"
         )
     if engine not in ("auto", "freerun", "xla", "fused"):
         raise ValueError("engine must be 'auto', 'freerun', 'xla' or 'fused'")
@@ -120,17 +128,8 @@ def mcmcglm(
         raise NotImplementedError(
             "mesh is not ported yet: ROADMAP queue 1, item 10 (multi-GPU)"
         )
-    if thin > 1:
-        raise NotImplementedError(
-            "thin > 1 is not ported yet: ROADMAP queue 1, item 8 "
-            "(on-device collection)"
-        )
     kernel = qslice_fun if qslice_fun is not None else slice_fn
-    if kernel in _LATER_KERNELS and not use_fused:
-        raise NotImplementedError(
-            f"slice_fn={kernel!r} is not ported yet: ROADMAP queue 1, item 7"
-        )
-    if kernel not in _PORTED_KERNELS + _LATER_KERNELS:
+    if kernel not in _KERNELS:
         raise ValueError(f"unknown slice kernel {kernel!r}")
 
     fam = check_family(family)
@@ -179,8 +178,14 @@ def mcmcglm(
                                tuning=tuning, device=device)
     else:
         engine_opts = dict(engine_opts or {})
-        if kernel == "quantile":
-            engine_opts.setdefault("slice_kernel", "quantile")
+        if conjugate:
+            engine_opts["coord_sampler"] = "conjugate"
+        elif kernel != "stepping_out":
+            engine_opts.setdefault("slice_kernel", kernel)
+        if engine_opts.get("slice_kernel") == "doubling":
+            # the classic one-evaluation pass only: the speculative
+            # battery does not compose with the back-test
+            engine_opts.pop("spec_k", None)
         sampler = FreeRunCGGibbs(
             design.X, design.y, fam, prior, extra=extra, tuning=tuning,
             obs_weights=weights, dtype=dtype, offset=design.offset,
@@ -197,6 +202,7 @@ def mcmcglm(
             print(f"\rSampling from posterior: {done}/{total} ({pct:.0f}%)",
                   end="" if done < total else "\n", flush=True)
 
+    kernel_name = None if sample_method == "normal-normal" else kernel
     t0 = time.perf_counter()
     if use_fused:
         betas, nev, _ = sampler.sample(seed, n_samples, n_chains=n_chains,
@@ -219,6 +225,20 @@ def mcmcglm(
     # reported per-sweep counts
     nev_warm = state.nev.cpu().numpy().copy()
     n_keep = n_samples - burnin
+    if thin > 1:
+        # thinned collection with the streaming moments on the device;
+        # the draws are thinned, so n_evals is the flat per-sweep average
+        n_outer = n_keep // thin
+        state, _, kept, _ = sampler.run_thinned(state, n_outer, thin)
+        betas = np.concatenate([parts[0], kept.cpu().numpy()], axis=1)
+        n_run = max(n_outer * thin, 1)
+        nev_per = (state.nev.cpu().numpy() - nev_warm) / n_run
+        if progress_cb is not None:
+            progress_cb(n_samples, n_samples)
+        return _result(design, fam, extra, tuning, betas,
+                       np.broadcast_to(nev_per[:, None], (n_chains, n_run)),
+                       0, sample_method, kernel_name, call,
+                       time.perf_counter() - t0, device, sampler, state)
     step_size = chunk_size if chunk_size > 0 else n_keep
     nev_parts = []
     done = 0
@@ -235,12 +255,13 @@ def mcmcglm(
     n_evals = np.diff(np.concatenate([nev_warm[:, None], cum], axis=1),
                       axis=1)
     return _result(design, fam, extra, tuning, betas, n_evals, burnin,
-                   sample_method, kernel, call, time.perf_counter() - t0,
-                   device)
+                   sample_method, kernel_name, call, time.perf_counter() - t0,
+                   device, sampler, state)
 
 
 def _result(design, fam, extra, tuning, betas, n_evals, burnin,
-            sample_method, kernel, call, elapsed, device) -> MCMCGLM:
+            sample_method, kernel, call, elapsed, device, sampler=None,
+            state=None) -> MCMCGLM:
     return MCMCGLM(
         beta=betas,
         columns=list(design.columns),
@@ -259,4 +280,6 @@ def _result(design, fam, extra, tuning, betas, n_evals, burnin,
         extra=extra,
         offset=design.offset,
         device=str(device),
+        sampler=sampler,
+        state=state,
     )

@@ -12,8 +12,9 @@ imports JAX.  It undoes the JAX package's Pallas layouts:
   ``(C, n)``.
 
 The JAX PRNG key does not carry over (the two packages use different
-generators): the port's state gets the ``torch.Generator`` passed in, or a
-fresh one seeded with 0.  :func:`convert_fused_state` does the same for
+generators): the port's state gets the Philox key of the ``seed`` passed
+in (0 by default) and pass index 1, where a fresh ``init`` starts.
+:func:`convert_fused_state` does the same for
 the fused engine: it cuts the padded eta back to n and takes the JAX
 state's ``seed_ctr`` as the port's Philox seed (the TPU stream itself does
 not carry over).
@@ -25,16 +26,19 @@ import numpy as np
 import torch
 
 from .fused import FusedState
+from .ops.philox import key_tensor
 
 __all__ = ["convert_fused_state", "convert_state"]
 
 _INT_FIELDS = ("j", "phase", "stepdir", "budL", "budR", "n_shrink", "nev")
+_BOOL_FIELDS = ("e_aL", "e_aR", "h_aL", "h_aR", "dsep")  # DoublingState
 
 
-def convert_state(jax_state, eng, generator=None):
+def convert_state(jax_state, eng, seed: int = 0):
     """The port's state for ``eng`` (a port ``FreeRunCGGibbs``) from a JAX
-    ``FreeRunState`` / ``QuantileState`` built on the same problem."""
-    names = eng.state_cls._fields
+    ``FreeRunState`` / ``QuantileState`` / ``DoublingState`` built on the
+    same problem."""
+    names = [k for k in eng.state_cls._fields if k not in ("key", "ctr")]
     missing = [k for k in names if not hasattr(jax_state, k)]
     if missing:
         raise ValueError(
@@ -43,15 +47,15 @@ def convert_state(jax_state, eng, generator=None):
         )
     fields = {}
     for name in names:
-        if name == "key":
-            continue
         a = np.asarray(getattr(jax_state, name))
         if name == "eta" or (name == "ld0" and a.ndim > 1):
             # (C, n_pad) or pallas3's (C, S, 128) -> (C, n)
             a = a.reshape(a.shape[0], -1)[:, : eng.n]
-        dtype = torch.int32 if name in _INT_FIELDS else eng.dtype
+        dtype = (torch.int32 if name in _INT_FIELDS
+                 else torch.bool if name in _BOOL_FIELDS else eng.dtype)
         fields[name] = torch.tensor(a, dtype=dtype, device=eng.device)
-    fields["key"] = eng._generator(0 if generator is None else generator)
+    fields["key"] = key_tensor(seed, eng.device)
+    fields["ctr"] = torch.ones((), dtype=torch.int64, device=eng.device)
     return eng.state_cls(**fields)
 
 

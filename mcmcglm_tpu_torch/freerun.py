@@ -1,21 +1,27 @@
 """Free-running CGGibbs: lockstep-free slice-within-Gibbs, in PyTorch.
 
-Counterpart of ``mcmcglm_tpu/freerun.py`` for ``slice_kernel`` in
-{"stepping_out", "quantile"}.  Each chain runs the standard sequential
+Counterpart of ``mcmcglm_tpu/freerun.py`` for every coordinate sampler
+of the JAX engine: the six slice kernels (stepping_out, quantile, latent,
+elliptical, genelliptical, doubling) and the exact conjugate draws
+(``coord_sampler="conjugate"``).  Each chain runs the standard sequential
 CGGibbs algorithm as an explicit automaton that advances by one target
 evaluation (or one K-proposal speculative battery) per device pass; chains
 are free-running, so within one pass chain A can be shrinking coordinate
-17 while chain B steps out coordinate 901.  The pass itself lives in
-``ops/freerun_passes.py``; the K-proposal batteries, and the CUDA kernels
-that evaluate them, in ``ops/freerun_batteries.py``.
+17 while chain B steps out coordinate 901.  The passes live in
+``ops/freerun_passes.py`` (and ``ops/freerun_doubling.py``,
+``ops/freerun_conjugate.py``); the K-proposal batteries, and the CUDA
+kernels that evaluate them, in ``ops/freerun_batteries.py``.
 
-PyTorch runs eagerly: a run is a Python loop of passes that reads the
-termination flag from the device once per pass.  The engine never picks a
-device: ``device=`` is a required argument, and every tensor it makes
-lives there.  Random numbers come from a ``torch.Generator`` on that
-device, carried in the state's ``key`` field; it gives other numbers than
-the JAX package's threefry keys, so the two engines agree in law, not
-draw for draw (a test hands both the same uniforms to compare one pass).
+A run is a loop of blocks of 32 passes with one host read of the
+termination flag per block (``passloop.py``); on CUDA each block is one
+CUDA graph replay.  The engine never picks a device: ``device=`` is a
+required argument, and every tensor it makes lives there.  Random numbers
+come from a counter-based Philox4x32-10 stream keyed by the seed: the
+state carries the key (``key``, int64 (2,)) and the index of the next pass
+that consumes randomness (``ctr``, int64 0-d); a pass draws slot t of
+chain c from counter (ctr, c, t).  The JAX package's threefry keys give
+other numbers, so the two engines agree in law, not draw for draw (a test
+hands both the same draws to compare one pass).
 """
 
 from __future__ import annotations
@@ -28,13 +34,26 @@ import torch
 
 from .models.families import Family, check_family
 from .models.priors import BetaPrior
-from .ops.freerun_batteries import configure_battery, masked_sum
+from .ops.freerun_batteries import configure_battery, launch_counts, masked_sum
+from .ops.philox import key_tensor, pass_uniforms
+from .passloop import BlockLoop, new_stats
 from .utils.linalg import matvec
 
 __all__ = ["FreeRunCGGibbs", "FreeRunState", "QuantileState"]
 
-# slice kernels of the JAX engine that the port does not run yet
-_NOT_PORTED = ("latent", "elliptical", "genelliptical", "doubling")
+_KERNELS = ("stepping_out", "latent", "elliptical", "genelliptical",
+            "quantile", "doubling")
+_UNBOUNDED = 1 << 62  # the pass budget of a run without a pass bound
+# passes per block of the pass loop (the pass budget caps it): on an H100
+# 32 ran faster per pass than 1, 8 or 128 (PERF.md, section 5)
+_BLOCK_PASSES = 32
+# captured blocks an engine keeps, least recently used evicted first:
+# each holds a static copy of its carry (the draws buffer included)
+_MAX_GRAPHS = 8
+# Marsaglia-Tsang candidates per genelliptical Gamma draw: each is
+# rejected with probability below 0.049 (shape >= 1, after the boost), so
+# a draw exhausts all of them with probability below 0.049**12 < 2e-16
+_GAMMA_CANDIDATES = 12
 
 
 class FreeRunState(NamedTuple):
@@ -44,7 +63,8 @@ class FreeRunState(NamedTuple):
     # log-density cache at the committed eta: (C,) reduced log likelihood
     # for eval_cache="scalar", (C, n) per-observation for "per_obs"
     ld0: torch.Tensor
-    key: torch.Generator  # each pass draws one (C, width) uniform block
+    key: torch.Tensor  # (2,) int64 Philox key
+    ctr: torch.Tensor  # () int64 index of the next pass that draws
     logw: torch.Tensor  # (C, d) per-coordinate log slice widths
     # automaton registers, all (C,)
     j: torch.Tensor  # current coordinate, int32
@@ -57,7 +77,7 @@ class FreeRunState(NamedTuple):
     budR: torch.Tensor
     b0: torch.Tensor  # current beta[:, j]
     lp0: torch.Tensor  # prior coord log prob at b0
-    w: torch.Tensor  # slice width (quantile: the pivot u0 = F(b0))
+    w: torch.Tensor  # slice width (quantile: u0 = F(b0); angular: nu)
     xprop: torch.Tensor  # proposal to evaluate next pass
     n_shrink: torch.Tensor  # shrink evals this coordinate, int32
     nev: torch.Tensor  # (C,) total target evaluations, int32
@@ -71,7 +91,8 @@ class QuantileState(NamedTuple):
     beta: torch.Tensor
     eta: torch.Tensor
     ld0: torch.Tensor
-    key: torch.Generator
+    key: torch.Tensor
+    ctr: torch.Tensor
     logw: torch.Tensor  # (C, d) log pseudo-target scales
     j: torch.Tensor
     phase: torch.Tensor
@@ -106,12 +127,41 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _gather(arr, j):
+    """arr[c, j_c] for every chain c."""
+    return torch.gather(arr, 1, j.long()[:, None])[:, 0]
+
+
+def standard_gamma(alpha: float, u: torch.Tensor) -> torch.Tensor:
+    """Gamma(alpha, 1) draws from uniforms ``u`` (..., 2m + 1) by
+    Marsaglia & Tsang (2000): candidate i takes the normal score
+    ndtri(u[..., i]) and the acceptance uniform u[..., m + i]; the first
+    accepted candidate is the draw.  For alpha < 1 the draw is
+    Gamma(alpha + 1) * U^(1/alpha) with U = u[..., 2m].  A draw whose m
+    candidates are all rejected is NaN, never an approximation."""
+    m = (u.shape[-1] - 1) // 2
+    a = alpha + 1.0 if alpha < 1.0 else alpha
+    dd = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * dd)
+    x = torch.special.ndtri(u[..., :m])
+    v = (1.0 + c * x) ** 3
+    logv = torch.log(torch.clamp(v, min=torch.finfo(u.dtype).tiny))
+    ok = (v > 0) & (torch.log(u[..., m:2 * m])
+                    < 0.5 * x * x + dd - dd * v + dd * logv)
+    first = torch.argmax(ok.to(torch.uint8), -1, keepdim=True)
+    g = dd * torch.gather(v, -1, first)[..., 0]
+    if alpha < 1.0:
+        g = g * u[..., 2 * m] ** (1.0 / alpha)
+    return torch.where(ok.any(-1), g, math.nan)
+
+
 class FreeRunCGGibbs:
-    """Lockstep-free CGGibbs sampler (stepping_out and quantile kernels).
+    """Lockstep-free CGGibbs sampler (all six univariate slice kernels and
+    the exact conjugate coordinate draws).
 
     Same problem signature as the JAX package's ``FreeRunCGGibbs``, plus
-    the required keyword ``device``.  ``spec_k`` defaults to 4 on CUDA and
-    1 on the CPU.  ``battery_impl`` is "auto", "torch", "cuda", "cuda2" or
+    the required keyword ``device``.  ``spec_k`` defaults to 4 on CUDA and 1 on the CPU (always 1 for
+    doubling).  ``battery_impl`` is "auto", "torch", "cuda", "cuda2" or
     "cuda3" (see ``ops/freerun_batteries.configure_battery``).
     """
 
@@ -140,26 +190,21 @@ class FreeRunCGGibbs:
         *,
         device,
     ):
-        if slice_kernel in _NOT_PORTED:
-            raise NotImplementedError(
-                f"slice_kernel={slice_kernel!r} is not ported yet: ROADMAP "
-                "queue 1, item 7 (remaining automaton kernels)"
-            )
-        if slice_kernel not in ("stepping_out", "quantile"):
+        if slice_kernel not in _KERNELS:
             raise ValueError(
                 "freerun slice_kernel must be one of 'stepping_out', "
                 "'doubling', 'latent', 'elliptical', 'genelliptical' or "
                 f"'quantile' (got {slice_kernel!r})"
             )
-        if coord_sampler == "conjugate":
-            raise NotImplementedError(
-                "coord_sampler='conjugate' is not ported yet: ROADMAP "
-                "queue 1, item 7 (the conjugate pass)"
-            )
-        if coord_sampler != "slice":
+        if coord_sampler not in ("slice", "conjugate"):
             raise ValueError(
                 f"coord_sampler must be 'slice' or 'conjugate', got "
                 f"{coord_sampler!r}"
+            )
+        if slice_kernel != "stepping_out" and coord_sampler == "conjugate":
+            raise ValueError(
+                "coord_sampler='conjugate' draws exact normals — it has "
+                f"no slice kernel; drop slice_kernel={slice_kernel!r}"
             )
         if x_storage not in ("f32", "bf16"):
             raise ValueError(
@@ -169,9 +214,29 @@ class FreeRunCGGibbs:
         self.device = _resolve_device(device)
         self.slice_kernel = slice_kernel
         self.coord_sampler = coord_sampler
-        # uniforms consumed per coordinate begin (level, interval position,
-        # stepout split; quantile uses the first two of the same block)
-        self._n_begin_u = 3
+        self.is_angular = slice_kernel in ("elliptical", "genelliptical")
+        # uniforms consumed per coordinate begin: stepping_out (level,
+        # interval position, stepout split; quantile uses the first two),
+        # latent (level, midpoint, width Exp, first proposal), elliptical
+        # (level, nu normal score, theta0), doubling (level, position)
+        self._n_begin_u = (4 if slice_kernel == "latent"
+                           else 2 if slice_kernel == "doubling" else 3)
+        if slice_kernel == "doubling" or coord_sampler == "conjugate":
+            what = ("slice_kernel='doubling' runs the classic "
+                    "one-evaluation pass" if slice_kernel == "doubling"
+                    else "coord_sampler='conjugate' does not use the slice "
+                    "proposal batteries")
+            if slice_kernel == "doubling" and spec_k not in (None, 1):
+                raise ValueError(
+                    "slice_kernel='doubling' requires spec_k=1: the "
+                    "speculative battery's all-rejections proposal "
+                    "recursion does not compose with the Fig. 6 "
+                    "back-test (ops/freerun_doubling.py)"
+                )
+            if battery_impl not in ("auto", "torch"):
+                raise ValueError(f"{what}; drop battery_impl={battery_impl!r}")
+            battery_impl = "torch"
+            spec_k = 1
         self.family: Family = check_family(family)
         # the engine only ever COMPARES log densities across eta, so it
         # evaluates the relative form (eta-independent constants dropped)
@@ -208,12 +273,32 @@ class FreeRunCGGibbs:
         self._extra_host = {k: float(v) for k, v in self.extra.items()
                             if v.dim() == 0}
         tuning = dict(tuning or {})
-        if "w" not in tuning and slice_kernel == "stepping_out":
+        if ("w" not in tuning and coord_sampler == "slice"
+                and slice_kernel in ("stepping_out", "doubling")):
             raise ValueError(
                 "A tuning parameter for the slice kernel is missing: ['w'] "
                 f"required by {slice_kernel!r}"
             )
         self.w0 = float(tuning.get("w", 1.0))
+        # doubling budget (Neal's p), capped at 60: p doublings scale the
+        # interval by 2^p, and past ~2^60 w a float32 interval overflows
+        self.max_doublings = min(int(tuning.get("max_doublings", 32)), 60)
+        # latent's Exp rate of the width refresh
+        self.rate = float(tuning.get("rate", 0.3))
+        if self.is_angular:
+            if "sigma" not in tuning:
+                raise ValueError(
+                    "A tuning parameter for the slice kernel is missing: "
+                    f"['sigma'] required by {slice_kernel!r}"
+                )
+            if slice_kernel == "genelliptical" and "df" not in tuning:
+                raise ValueError(
+                    "A tuning parameter for the slice kernel is missing: "
+                    "['df'] required by 'genelliptical'"
+                )
+        self.ell_mu = float(tuning.get("mu", 0.0))
+        self.ell_sigma = float(tuning.get("sigma", 1.0))
+        self.ell_df = float(tuning.get("df", 1.0))
         # quantile pseudo-target (the lockstep slice_quantile defaults)
         self.q_loc = float(tuning.get("pseudo_loc", 0.0))
         self.q_scale = float(tuning.get("pseudo_scale", 1.0))
@@ -277,18 +362,45 @@ class FreeRunCGGibbs:
         self.spec_k = int(spec_k)
         if not 1 <= self.spec_k <= 32:
             raise ValueError(f"spec_k must be in [1, 32], got {spec_k}")
-        self.state_cls = QuantileState if self.q_adapt else FreeRunState
+        if slice_kernel == "doubling":
+            from .ops.freerun_doubling import DoublingState
+
+            self.state_cls = DoublingState
+        elif self.q_adapt:
+            self.state_cls = QuantileState
+        else:
+            self.state_cls = FreeRunState
         configure_battery(self, battery_impl, user_reduce_fn=user_reduce_fn)
         # the rows the cuda3 kernel streams: bfloat16 under x_storage="bf16"
         # (half the row bytes; the values are already rounded, so the
         # kernel's upcast reproduces the float32 rows exactly)
         bf16_rows = x_storage == "bf16" and self.battery_impl == "cuda3"
         self._Xt_rows = self.Xt.to(torch.bfloat16) if bf16_rows else self.Xt
+        if coord_sampler == "conjugate":
+            from .ops.freerun_conjugate import conjugate_params
+
+            m, s2 = conjugate_params(self)
+            self._conj_m = _tensor(m, dtype, dev)
+            self._conj_s2 = _tensor(s2, dtype, dev)
+            # sum_i w_i x_ij^2, the static part of the conditional precision
+            self._conj_sxx = self.reduce_fn(self.Xt ** 2)  # (d,)
+            sd = self.extra.get("sd", torch.ones((), dtype=dtype, device=dev))
+            self._conj_inv_sigma2 = 1.0 / (sd * sd)
+        # uniforms per pass: the K-proposal battery (or one proposal) plus
+        # the coordinate begin's; the conjugate pass draws one normal
+        self._pass_width = (1 if coord_sampler == "conjugate"
+                            else self.spec_k + self._n_begin_u)
+        self._block_passes = _BLOCK_PASSES
+        # CUDA graphs per block on CUDA; the eager loop there is for the
+        # tests and the smoke's equality check only
+        self._graph_loop = self.device.type == "cuda"
+        self._loops: dict = {}
+        self.loop_stats = new_stats()
 
     def _coord_lp(self, beta, j, b):
         return self.prior.coord_log_prob(beta, j, b).to(self.dtype)
 
-    # -- quantile pseudo-target maps ------------------------------------
+    # -- quantile pseudo-target maps and the ellipse ---------------------
 
     def quantile_ppf(self, u, loc=None, scale=None):
         """Pseudo-target quantile function with the eps-clip that keeps
@@ -322,26 +434,42 @@ class FreeRunCGGibbs:
                     - float(0.5 * np.log(2.0 * np.pi)))
         return -torch.log(math.pi * scale * (1.0 + z * z))
 
+    def ellipse_point(self, b0, nu, theta):
+        """The elliptical proposal x(theta) on the ellipse through the
+        current point b0 and the auxiliary draw nu around mu (Murray,
+        Adams & MacKay 2010)."""
+        mu = self.ell_mu
+        return (b0 - mu) * torch.cos(theta) + (nu - mu) * torch.sin(theta) + mu
+
     # -- coordinate initialisation (batched) -----------------------------
 
-    def _begin_coord(self, beta, logw, j, shrink_only, ubatch, qloc=None):
+    def _begin_coord(self, beta, logw, j, shrink_only, ubatch, qloc=None,
+                     g=None):
         """Level + initial interval for each lane's coordinate j, from the
-        (C, 3) uniform block ``ubatch``; returns a dict of fresh automaton
-        registers.
+        (C, nb) uniform block ``ubatch`` (and, for genelliptical, the (C,)
+        standard Gamma draws ``g``); returns a dict of fresh automaton
+        registers (latent adds ``logw_j``, the refreshed log width for the
+        caller to commit; doubling its back-test registers).
 
         ``shrink_only=True`` is Neal's procedure with a step-out budget of
         m = 1 (the width-w interval is used directly and the lane starts
         shrinking); ``False`` is the full stepping-out schedule; a (C,)
-        bool tensor selects per lane (two-phase warmup)."""
+        bool tensor selects per lane (two-phase warmup).  Only the
+        stepping-out kernel reads it."""
+        if self.slice_kernel == "latent":
+            return self._begin_coord_latent(beta, logw, j, ubatch)
+        if self.is_angular:
+            return self._begin_coord_elliptical(beta, j, ubatch, g)
         if self.slice_kernel == "quantile":
             return self._begin_coord_quantile(beta, logw, j, ubatch, qloc)
+        if self.slice_kernel == "doubling":
+            return self._begin_coord_doubling(beta, logw, j, ubatch)
         C = beta.shape[0]
         level = torch.log1p(-ubatch[:, 0])  # -Exp(1), exact for u in [0, 1)
         u = ubatch[:, 1]
         uj = ubatch[:, 2]
-        jl = j.long()[:, None]
-        w = torch.exp(torch.gather(logw, 1, jl)[:, 0])
-        b0 = torch.gather(beta, 1, jl)[:, 0]
+        w = torch.exp(_gather(logw, j))
+        b0 = _gather(beta, j)
         L = b0 - w * u
         R = L + w
         lp0 = self._coord_lp(beta, j, b0)
@@ -366,6 +494,59 @@ class FreeRunCGGibbs:
                     w=w, xprop=xprop, phase=phase, stepdir=zero,
                     n_shrink=zero)
 
+    def _begin_coord_latent(self, beta, logw, j, ubatch):
+        """Latent-slice coordinate begin (Li & Walker 2020): reads the
+        carried bracket width s = exp(logw[c, j]) of the last visit, draws
+        the latent midpoint l ~ U(b0 - s/2, b0 + s/2), refreshes
+        s' = 2|l - b0| + Exp(rate) and opens the shrink-only bracket
+        (l - s'/2, l + s'/2).  Four uniforms: level, midpoint, width Exp,
+        first proposal."""
+        C = beta.shape[0]
+        level = torch.log1p(-ubatch[:, 0])
+        s = torch.exp(_gather(logw, j))
+        b0 = _gather(beta, j)
+        latent_l = b0 + s * (ubatch[:, 1] - 0.5)
+        s_new = (2.0 * torch.abs(latent_l - b0)
+                 - torch.log1p(-ubatch[:, 2]) / self.rate)
+        L = latent_l - 0.5 * s_new
+        R = latent_l + 0.5 * s_new
+        zero = torch.zeros(C, dtype=torch.int32, device=beta.device)
+        return dict(
+            level=level, L=L, R=R, budL=zero, budR=zero, b0=b0,
+            lp0=self._coord_lp(beta, j, b0), w=s_new,
+            xprop=L + (R - L) * ubatch[:, 3], phase=torch.ones_like(zero),
+            stepdir=zero, n_shrink=zero, logw_j=torch.log(s_new),
+        )
+
+    def _begin_coord_elliptical(self, beta, j, ubatch, g=None):
+        """Elliptical-slice coordinate begin (Murray, Adams & MacKay 2010):
+        the auxiliary nu ~ N(mu, sigma_eff^2) in the ``w`` register, the
+        angle theta0 ~ U(0, 2 pi) with bracket (theta0 - 2 pi, theta0) and
+        THETA in the xprop register (the passes map it through
+        :meth:`ellipse_point` and shrink toward theta = 0).
+
+        genelliptical (Nishihara et al. 2014): sigma_eff = sigma /
+        sqrt(lambda), lambda | b0 ~ Gamma((df + 1)/2, rate=(df +
+        ((b0 - mu)/sigma)^2)/2), from the standard Gamma draw ``g``."""
+        C = beta.shape[0]
+        level = torch.log1p(-ubatch[:, 0])
+        b0 = _gather(beta, j)
+        sigma_eff = self.ell_sigma
+        if self.slice_kernel == "genelliptical":
+            z2 = ((b0 - self.ell_mu) / self.ell_sigma) ** 2
+            rate = (self.ell_df + z2) / 2.0
+            sigma_eff = self.ell_sigma * torch.rsqrt(g / rate)
+        u_nu = torch.clamp(ubatch[:, 1], 1e-7, 1.0 - 1e-7)
+        nu = self.ell_mu + sigma_eff * torch.special.ndtri(u_nu)
+        two_pi = 2.0 * math.pi
+        theta0 = ubatch[:, 2] * two_pi
+        zero = torch.zeros(C, dtype=torch.int32, device=beta.device)
+        return dict(
+            level=level, L=theta0 - two_pi, R=theta0, budL=zero, budR=zero,
+            b0=b0, lp0=self._coord_lp(beta, j, b0), w=nu, xprop=theta0,
+            phase=torch.ones_like(zero), stepdir=zero, n_shrink=zero,
+        )
+
     def _begin_coord_quantile(self, beta, logw, j, ubatch, qloc=None):
         """Quantile-slice coordinate begin (Heiner, Johnson & Waller 2024):
         shrinkage on the unit interval (0, 1) with the pivot u0 = F(b0)
@@ -373,39 +554,74 @@ class FreeRunCGGibbs:
         (chain, coordinate)'s own adapted pseudo-target."""
         C = beta.shape[0]
         level = torch.log1p(-ubatch[:, 0])  # -Exp(1), on the h scale
-        jl = j.long()[:, None]
-        b0 = torch.gather(beta, 1, jl)[:, 0]
+        b0 = _gather(beta, j)
         if self.q_adapt:
-            loc = torch.gather(qloc, 1, jl)[:, 0]
-            scale = torch.exp(torch.gather(logw, 1, jl)[:, 0])
-            u0 = self.quantile_cdf(b0, loc, scale)
+            u0 = self.quantile_cdf(b0, _gather(qloc, j),
+                                   torch.exp(_gather(logw, j)))
         else:
             u0 = self.quantile_cdf(b0)
         u0 = torch.clamp(u0.to(self.dtype), 1e-7, 1.0 - 1e-7)
-        lp0 = self._coord_lp(beta, j, b0)
         zero = torch.zeros(C, dtype=torch.int32, device=beta.device)
         return dict(
             level=level, L=torch.zeros_like(b0), R=torch.ones_like(b0),
-            budL=zero, budR=zero, b0=b0, lp0=lp0, w=u0, xprop=ubatch[:, 1],
-            phase=torch.ones_like(zero), stepdir=zero, n_shrink=zero,
+            budL=zero, budR=zero, b0=b0, lp0=self._coord_lp(beta, j, b0),
+            w=u0, xprop=ubatch[:, 1], phase=torch.ones_like(zero),
+            stepdir=zero, n_shrink=zero,
         )
 
-    def _generator(self, seed) -> torch.Generator:
-        if isinstance(seed, torch.Generator):
-            if seed.device.type != self.device.type:
-                raise ValueError(
-                    f"generator on {seed.device}, engine on {self.device}"
-                )
-            return seed
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def _begin_coord_doubling(self, beta, logw, j, ubatch):
+        """Doubling-slice coordinate begin (Neal 2003, Fig. 4): the
+        width-w interval positioned around b0, its LEFT endpoint the first
+        evaluation, ``budL`` the doubling budget p, the back-test registers
+        cleared.  Two uniforms: level, position.  Widths stay the user's w
+        (no adaptation)."""
+        C = beta.shape[0]
+        level = torch.log1p(-ubatch[:, 0])
+        w = torch.exp(_gather(logw, j))
+        b0 = _gather(beta, j)
+        L = b0 - w * ubatch[:, 1]
+        R = L + w
+        zero = torch.zeros(C, dtype=torch.int32, device=beta.device)
+        false = torch.zeros(C, dtype=torch.bool, device=beta.device)
+        return dict(
+            level=level, L=L, R=R, budL=torch.full_like(zero,
+                                                       self.max_doublings),
+            budR=zero, b0=b0, lp0=self._coord_lp(beta, j, b0), w=w,
+            xprop=L, phase=zero, stepdir=zero, n_shrink=zero,
+            x1=b0, eL=L, eR=R, e_aL=false, e_aR=false,
+            hatL=L, hatR=R, h_aL=false, h_aR=false, dsep=false,
+        )
 
-    def init(self, seed, n_chains: int, beta0=None):
-        """Initial state for ``n_chains`` chains.  ``seed`` is an int or a
-        ``torch.Generator`` on the engine's device, which the state then
-        carries.  ``beta0`` ((d,) or (C, d)) overrides the prior draw."""
-        g = self._generator(seed)
+    # -- randomness -------------------------------------------------------
+
+    def _randoms(self, key, p0, n_passes: int, n_chains: int) -> dict:
+        """The random inputs of the passes with indices p0 .. p0 +
+        n_passes - 1, as the pass functions take them, each with a leading
+        pass axis: ``u`` (uniform block), ``g`` (genelliptical's standard
+        Gamma draws, NaN where a draw exhausted its candidates) or ``z``
+        (the conjugate pass's standard normals, ndtri of one uniform)."""
+        W = self._pass_width
+        extra = (2 * _GAMMA_CANDIDATES + 1
+                 if self.slice_kernel == "genelliptical" else 0)
+        U = pass_uniforms(key, p0, n_passes, n_chains, W + extra)
+        if self.coord_sampler == "conjugate":
+            return {"z": torch.special.ndtri(U[..., 0])}
+        out = {"u": U[..., :W]}
+        if extra:
+            out["g"] = standard_gamma((self.ell_df + 1.0) / 2.0, U[..., W:])
+        return out
+
+    def init(self, seed: int, n_chains: int, beta0=None):
+        """Initial state for ``n_chains`` chains under the integer
+        ``seed``: the prior draw comes from a ``torch.Generator`` seeded
+        with it, the automaton's randomness from the Philox stream keyed by
+        it (the first coordinate begin takes pass index 0, and the state's
+        first pass index 1).  ``beta0`` ((d,) or (C, d)) overrides the prior
+        draw."""
+        seed = int(seed)
         C = int(n_chains)
         dev, dtype = self.device, self.dtype
+        g = torch.Generator(device=dev).manual_seed(seed)
         beta = self.prior.sample_beta(g, C, dtype=dtype, device=dev)
         if beta0 is not None:
             beta0 = _tensor(beta0, dtype, dev)
@@ -416,20 +632,35 @@ class FreeRunCGGibbs:
         ld0 = self._ld_eta(eta, self.y, self.extra)
         if self.eval_cache == "scalar":
             ld0 = self.reduce_fn(ld0)
-        w_init = self.q_scale if self.q_adapt else self.w0
+        w_init = (1.0 / self.rate if self.slice_kernel == "latent"
+                  else self.q_scale if self.q_adapt else self.w0)
         logw = torch.full((C, self.d), float(np.log(np.float32(w_init))),
                           dtype=dtype, device=dev)
         qloc = (torch.full((C, self.d), self.q_loc, dtype=dtype, device=dev)
                 if self.q_adapt else None)
         j0 = torch.zeros(C, dtype=torch.int32, device=dev)
-        ub = torch.rand((C, self._n_begin_u), generator=g, dtype=dtype,
-                        device=dev)
-        reg = self._begin_coord(beta, logw, j0, False, ub, qloc=qloc)
+        key = key_tensor(seed, dev)
+        nb = self._n_begin_u
+        gen = self.slice_kernel == "genelliptical"
+        U = pass_uniforms(key, torch.zeros((), dtype=torch.int64, device=dev),
+                          1, C, nb + (2 * _GAMMA_CANDIDATES + 1 if gen else 0)
+                          )[0]
+        gam = (standard_gamma((self.ell_df + 1.0) / 2.0, U[:, nb:])
+               if gen else None)
+        if gen and bool(torch.isnan(gam).any()):
+            raise RuntimeError("a Gamma draw exhausted its Marsaglia-Tsang "
+                               "candidates at init")
+        reg = self._begin_coord(beta, logw, j0, False, U[:, :nb], qloc=qloc,
+                                g=gam)
+        logw_j = reg.pop("logw_j", None)
+        if logw_j is not None:  # latent: commit the refreshed width
+            logw = self._commit_row(logw, j0, logw_j)
         if qloc is not None:
             reg["qloc"] = qloc
         return self.state_cls(
-            beta=beta, eta=eta, ld0=ld0, key=g, logw=logw, j=j0,
-            nev=torch.zeros(C, dtype=torch.int32, device=dev), **reg,
+            beta=beta, eta=eta, ld0=ld0, key=key,
+            ctr=torch.ones((), dtype=torch.int64, device=dev), logw=logw,
+            j=j0, nev=torch.zeros(C, dtype=torch.int32, device=dev), **reg,
         )
 
     @staticmethod
@@ -465,32 +696,98 @@ class FreeRunCGGibbs:
         return draws, nevbuf
 
     def _step_fn(self):
-        """The per-pass function for this engine's configuration."""
-        from .ops.freerun_passes import run_pass, run_pass_spec
+        """The per-pass function for this engine's configuration, called
+        as ``fn(eng, state, ...)``."""
+        if self.coord_sampler == "conjugate":
+            from .ops.freerun_conjugate import run_pass_conj as fn
+        elif self.slice_kernel == "doubling":
+            from .ops.freerun_doubling import run_pass_doubling as fn
+        else:
+            from .ops.freerun_passes import run_pass, run_pass_spec
 
-        fn = run_pass_spec if self.spec_k > 1 else run_pass
-        return lambda *args: fn(self, *args)
+            fn = run_pass_spec if self.spec_k > 1 else run_pass
+        return fn
 
-    # -- runs ---------------------------------------------------------------
+    # -- the block loop -----------------------------------------------------
+
+    def _block_fn(self, B: int, adapt: bool, shrink_only):
+        """One block of B passes, ``block(eng, carry) -> (carry, flag)``
+        with carry (state, sweep_count, draws, nevbuf, budget, bad, quota,
+        stepout).  ``budget`` is the count of passes with an active lane
+        still allowed (a pass past it runs with every lane idle); ``bad``
+        counts lane-passes that carried an exhausted Gamma draw; ``quota``
+        (sweeps per chain) and ``stepout`` (the two-phase warmup's
+        stepping-out quota, or None) are 0-d tensors, so one captured block
+        serves every run length.  flag = [some lane below its quota and
+        budget left, bad].  The block takes the engine per call and holds
+        no reference to it, so an engine and its cached loops form no
+        cycle."""
+        step = self._step_fn()
+        gen = self.slice_kernel == "genelliptical"
+
+        def block(eng, carry):
+            s, sc, draws, nevbuf, budget, bad, quota, stepout = carry
+            R = eng._randoms(s.key, s.ctr, B, sc.shape[0])
+            for i in range(B):
+                p = s.ctr
+                s, sc, draws, nevbuf = step(
+                    eng, s, sc, draws, nevbuf, quota, adapt, shrink_only,
+                    stepout, live=budget > 0,
+                    **{k: v[i] for k, v in R.items()})
+                budget = budget - (s.ctr - p)
+                if gen:
+                    bad = bad + torch.isnan(s.w).sum()
+            go = ((sc < quota).any() & (budget > 0)).to(torch.int64)
+            return ((s, sc, draws, nevbuf, budget, bad, quota, stepout),
+                    torch.stack([go, bad]))
+
+        return block
+
+    def _loop(self, C, B, adapt, shrink_only, two_phase, slots):
+        key_ = (C, B, adapt, shrink_only, two_phase, slots)
+        # the cache holds graph loops only: with the graph loop switched
+        # off, a configuration captured before must run eagerly
+        loop = self._loops.pop(key_, None) if self._graph_loop else None
+        if loop is None:
+            loop = BlockLoop(self._block_fn(B, adapt, shrink_only),
+                             graph=self._graph_loop, counters=[launch_counts],
+                             stats=self.loop_stats)
+        if self._graph_loop:  # an eager loop holds nothing to reuse
+            self._loops[key_] = loop  # the most recently used last
+            while len(self._loops) > _MAX_GRAPHS:
+                del self._loops[next(iter(self._loops))]
+        return loop
 
     def _run_pass_block(self, state, sweep_count, *, n_sweeps: int,
                         n_passes: Optional[int], adapt: bool, shrink_only,
                         stepout_sweeps=None, draws=None, nevbuf=None):
-        """Advance by at most ``n_passes`` passes (no bound when None)
-        toward a quota of ``n_sweeps`` completed sweeps per chain; stops
-        as soon as every chain has met its quota, so a run split into
-        blocks consumes exactly the uniforms of one unsplit run."""
-        step = self._step_fn()
-        p = 0
-        while (n_passes is None or p < n_passes) and bool(
-            (sweep_count < n_sweeps).any()
-        ):
-            state, sweep_count, draws, nevbuf = step(
-                state, sweep_count, draws, nevbuf, n_sweeps, adapt,
-                shrink_only, stepout_sweeps,
-            )
-            p += 1
+        """Advance by at most ``n_passes`` passes that have an active lane
+        (no bound when None) toward a quota of ``n_sweeps`` completed
+        sweeps per chain, in blocks of ``_block_passes`` passes (fewer when
+        ``n_passes`` is smaller).  A split run consumes exactly the
+        random numbers of one unsplit run, at any block length."""
+        C = int(state.beta.shape[0])
+        B = self._block_passes
+        if n_passes is not None:
+            B = max(1, min(B, int(n_passes)))
+        dev = self.device
+
+        def scalar(v):
+            return torch.full((), int(v), dtype=torch.int64, device=dev)
+
+        budget = scalar(_UNBOUNDED if n_passes is None else n_passes)
+        bad = scalar(0)
+        quota = scalar(n_sweeps)
+        stepout = None if stepout_sweeps is None else scalar(stepout_sweeps)
+        slots = None if draws is None else int(draws.shape[1])
+        loop = self._loop(C, B, adapt, shrink_only, stepout is not None,
+                          slots)
+        state, sweep_count, draws, nevbuf = loop(
+            self, (state, sweep_count, draws, nevbuf, budget, bad, quota,
+                   stepout))[:4]
         return state, sweep_count, draws, nevbuf
+
+    # -- runs ---------------------------------------------------------------
 
     def _buffers(self, C, n_sweeps):
         return (
@@ -558,18 +855,60 @@ class FreeRunCGGibbs:
         return self._run(state, n_sweeps, adapt=False,
                          shrink_only=self.shrink_only)
 
-    def run_thinned(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_thinned is not ported yet: ROADMAP queue 1, item 8 "
-            "(on-device collection)"
-        )
+    def run_thinned(self, state, n_outer: int, thin: int, moments=None,
+                    ess: bool = False, ess_max_lag: int = 64):
+        """Advance chains by ``n_outer * thin`` sweeps, keeping every
+        ``thin``-th draw and streaming per-chain Welford moments on the
+        device (each block of ``thin`` sweeps is one :meth:`run` on the
+        pass loop; its draws are merged in the chunk form, which centers
+        within the block).
+
+        Returns (state, moments, draws (C, n_outer, d), n_evals (C,)):
+        ``moments`` a ``parallel.pooled.ChainMoments`` with per-chain
+        counts (C,), ``n_evals`` the cumulative evaluation counter.
+        ``ess=True`` also streams the split-chain autocovariance
+        accumulator (``parallel.pooled.ESSState``, window
+        ``ess_max_lag``) and returns it as a fifth element, for
+        ``pooled.ess_from_state``."""
+        from .parallel.pooled import ChainMoments, init_ess, update_ess
+
+        C = int(state.beta.shape[0])
+        dev, dtype = self.device, self.dtype
+        if moments is None:
+            moments = ChainMoments(
+                count=torch.zeros(C, dtype=dtype, device=dev),
+                mean=torch.zeros((C, self.d), dtype=dtype, device=dev),
+                m2=torch.zeros((C, self.d), dtype=dtype, device=dev),
+            )
+        es = (init_ess(C, self.d, planned=n_outer, max_lag=ess_max_lag,
+                       dtype=dtype, device=dev) if ess else None)
+        cnt, mean, m2 = moments
+        kept = []
+        for _ in range(int(n_outer)):
+            state, draws, _ = self.run(state, thin)
+            mu_c = torch.mean(draws, dim=1)  # (C, d)
+            m2_c = torch.sum((draws - mu_c[:, None, :]) ** 2, dim=1)
+            cnt2 = cnt + float(thin)
+            delta = mu_c - mean
+            mean = mean + delta * (float(thin) / cnt2)[:, None]
+            m2 = m2 + m2_c + delta * delta * (cnt * float(thin) / cnt2)[:, None]
+            cnt = cnt2
+            if es is not None:
+                es = update_ess(es, draws[:, -1])
+            kept.append(draws[:, -1])
+        kept = (torch.stack(kept, 1) if kept else
+                torch.zeros((C, 0, self.d), dtype=dtype, device=dev))
+        out = (state, ChainMoments(cnt, mean, m2), kept, state.nev)
+        return out + (es,) if ess else out
 
     def warmup(self, state, n_sweeps: int,
                stepout_sweeps: Optional[int] = None):
         """Adaptive warmup: per-(chain, coordinate) widths (or quantile
         pseudo-targets) pulled toward the accepted moves, frozen after.
         The first ``stepout_sweeps`` sweeps (default :meth:`_auto_stepout`)
-        run the full stepping-out kernel, the rest the shrink-only one."""
+        run the full stepping-out kernel, the rest the shrink-only one.
+        Kernels without adaptation (latent, elliptical, genelliptical,
+        doubling, conjugate) just burn in."""
         if stepout_sweeps is None:
             stepout_sweeps = self._auto_stepout(n_sweeps)
         return self._run(state, n_sweeps, adapt=True, shrink_only=False,

@@ -18,6 +18,7 @@ from .priors import (
     IIDPrior,
     Laplace,
     Normal,
+    StackedPrior,
     StudentT,
     Uniform,
     make_beta_prior,

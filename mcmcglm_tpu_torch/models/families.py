@@ -39,8 +39,12 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _const(value, like: torch.Tensor) -> torch.Tensor:
-    """A scalar extra argument as a 0-d tensor of ``like``'s dtype/device."""
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    """A scalar extra argument as a 0-d tensor of ``like``'s dtype/device
+    (a Python number is filled on the device, never copied from the host,
+    so a CUDA graph can capture it)."""
+    if torch.is_tensor(value):
+        return value.to(dtype=like.dtype, device=like.device)
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

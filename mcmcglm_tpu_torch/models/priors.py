@@ -1,12 +1,14 @@
 """Prior distributions over GLM coefficient vectors, on torch tensors.
 
 Counterpart of ``mcmcglm_tpu/models/priors.py`` for the six univariate
-distributions and :class:`IIDPrior`.  The port's prior API is batched over
-chains (the JAX package's is per chain and vmapped):
-``coord_log_prob(beta, j, b)`` takes ``beta`` (C, d), ``j`` (C,) and
-proposals ``b`` of shape (C,) or (C, K).  The support rules are the JAX
-package's: Gamma is -inf for x <= 0, Exponential for x < 0, Uniform
-outside [low, high].
+distributions, :class:`IIDPrior` and :class:`StackedPrior`.  The port's
+prior API is batched over chains (the JAX package's is per chain and
+vmapped): ``coord_log_prob(beta, j, b)`` takes ``beta`` (C, d), ``j`` (C,)
+and proposals ``b`` of shape (C,) or (C, K).  The support rules are the
+JAX package's: Gamma is -inf for x <= 0, Exponential for x < 0, Uniform
+outside [low, high].  The log densities make their constants on the
+device (``torch.full``, never a host-to-device copy), so a CUDA graph can
+capture them.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "Uniform",
     "BetaPrior",
     "IIDPrior",
+    "StackedPrior",
     "make_beta_prior",
 ]
 
@@ -33,7 +36,7 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _f(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def _neg_inf_outside(inside: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
@@ -259,12 +262,48 @@ class IIDPrior(BetaPrior):
         return torch.eye(self.d, dtype=torch.float64) * self.dist.variance()
 
 
+class StackedPrior(BetaPrior):
+    """Independent per-coordinate marginal priors (the reference's
+    list-of-priors form), with the density sum_j log f_j(beta_j)."""
+
+    def __init__(self, dists):
+        self.dists = list(dists)
+        self.d = len(self.dists)
+
+    def sample_beta(self, generator, n_chains, *, dtype, device):
+        return torch.stack([
+            dist.sample(generator, (n_chains,), dtype=dtype, device=device)
+            for dist in self.dists
+        ], 1)
+
+    def log_prob_beta(self, beta):
+        return sum(dist.log_prob(beta[..., i])
+                   for i, dist in enumerate(self.dists))
+
+    def coord_log_prob(self, beta, j, b):
+        # every marginal at b, then each lane's coordinate selected: O(d)
+        # small operations, a feature for small d (IIDPrior for large d)
+        del beta
+        vals = torch.stack([dist.log_prob(b) for dist in self.dists], -1)
+        idx = j.long().reshape(-1, *([1] * (b.dim() - 1)), 1)
+        return torch.gather(vals, -1, idx.expand(*b.shape, 1))[..., 0]
+
+    def mean_beta(self):
+        return torch.tensor([float(dist.mean()) for dist in self.dists],
+                            dtype=torch.float64)
+
+    def cov_beta(self):
+        return torch.diag(torch.tensor(
+            [float(dist.variance()) for dist in self.dists],
+            dtype=torch.float64))
+
+
 def make_beta_prior(spec, d: int) -> BetaPrior:
     """Normalise a user prior spec into a BetaPrior: a univariate
-    :class:`Distribution` (iid over the d coordinates) or a
-    :class:`BetaPrior` of dimension d.  Per-coordinate lists and the
-    multivariate normal prior are not ported yet (ROADMAP queue 1,
-    item 2)."""
+    :class:`Distribution` (iid over the d coordinates), a list of d
+    univariate distributions (:class:`StackedPrior`) or a
+    :class:`BetaPrior` of dimension d.  The multivariate normal prior is
+    not ported yet (ROADMAP queue 1, item 2)."""
     if isinstance(spec, BetaPrior):
         if spec.d != d:
             raise ValueError(
@@ -275,8 +314,11 @@ def make_beta_prior(spec, d: int) -> BetaPrior:
     if isinstance(spec, Distribution):
         return IIDPrior(spec, d)
     if isinstance(spec, (list, tuple)):
-        raise NotImplementedError(
-            "per-coordinate prior lists (StackedPrior) are not ported yet: "
-            "ROADMAP queue 1, item 2 (model math)"
-        )
+        if len(spec) != d:
+            raise ValueError(
+                "The list length of the `beta_prior` specification needs to "
+                "match the number of parameters in the model (potentially "
+                "including intercept)"
+            )
+        return StackedPrior(spec)
     raise TypeError(f"cannot interpret beta_prior spec of type {type(spec)!r}")

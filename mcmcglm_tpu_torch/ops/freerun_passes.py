@@ -4,12 +4,27 @@ Counterpart of ``mcmcglm_tpu/ops/freerun_passes.py``.  ``run_pass``
 advances every chain by ONE target evaluation; ``run_pass_spec`` by a
 K-proposal speculative battery.  Both take the engine
 (``freerun.FreeRunCGGibbs``) first and return
-``(new_state, sweep_count, draws, nevbuf)``.
+``(new_state, sweep_count, draws, nevbuf)``.  Every slice kernel but
+doubling runs here: the angular kernels (elliptical, genelliptical) map
+the angle in ``xprop`` through the ellipse and shrink toward theta = 0,
+quantile maps through the pseudo-target and shrinks toward u0 = F(b0),
+latent commits its refreshed width into ``logw``.
 
-Each pass takes its uniform block as the optional argument ``u``:
-(C, 1 + nb) for ``run_pass`` and (C, K + nb) for ``run_pass_spec``, with
-nb = ``eng._n_begin_u``.  When ``u`` is None the pass draws the block from
-the state's generator; a test hands in the reference's own uniforms.
+Each pass takes its random draws as optional arguments: the uniform block
+``u``, (C, 1 + nb) for ``run_pass`` and (C, K + nb) for ``run_pass_spec``
+with nb = ``eng._n_begin_u``, and for genelliptical the (C,) standard
+Gamma draws ``g`` of the coordinate begin.  When they are None the pass
+draws them from the state's Philox stream at its pass index ``s.ctr``; a
+test hands in the reference's own draws.  ``live`` (a 0-d bool tensor)
+idles every lane when false: the pass loop's pass budget.
+
+A lane is active when it is below its sweep quota (and ``live``).  A pass
+in which no lane is active changes nothing: not the state, not the
+buffers, not the pass index (``ctr`` advances by one exactly when some
+lane is active), which is what lets a block of passes run past the
+quota.  (The one exception is the sign of an eta entry that is exactly
+zero: the kernels commit eta + x * 0, which turns -0.0 into +0.0, an
+equal value that nothing downstream tells apart.)
 
 The state tensors are not modified in place: every pass returns new
 tensors for the fields it changes, except the collection buffers
@@ -37,10 +52,38 @@ def _gather(arr, j):
     return torch.gather(arr, 1, j.long()[:, None])[:, 0]
 
 
-def _uniforms(eng, s, width):
-    C = s.beta.shape[0]
-    return torch.rand((C, width), generator=s.key, dtype=eng.dtype,
-                      device=eng.device)
+def _draws(eng, s):
+    """This pass's random inputs from the state's stream, at index s.ctr."""
+    r = eng._randoms(s.key, s.ctr, 1, s.beta.shape[0])
+    return {k: v[0] for k, v in r.items()}
+
+
+def _active(sweep_count, n_sweeps, live):
+    active = sweep_count < n_sweeps
+    return active if live is None else active & live
+
+
+def _pivot(eng, s):
+    """The shrink pivot: theta = 0 for the angular kernels, u0 = F(b0)
+    (the w register) for quantile, b0 otherwise."""
+    if eng.is_angular:
+        return torch.zeros_like(s.b0)
+    return s.w if eng.slice_kernel == "quantile" else s.b0
+
+
+def _to_x(eng, s, xs, q_loc=None, q_scale=None):
+    """Bracket-space proposals (angle, unit interval or x) in x-space;
+    ``xs`` is (C,) or (C, K)."""
+    if eng.is_angular:
+        if xs.dim() == 2:
+            return eng.ellipse_point(s.b0[:, None], s.w[:, None], xs)
+        return eng.ellipse_point(s.b0, s.w, xs)
+    if eng.slice_kernel == "quantile":
+        if xs.dim() == 2:
+            q_loc = None if q_loc is None else q_loc[:, None]
+            q_scale = None if q_scale is None else q_scale[:, None]
+        return eng.quantile_ppf(xs, q_loc, q_scale)
+    return xs
 
 
 def _pseudo_target(eng, s):
@@ -79,7 +122,7 @@ def _adapt(eng, s, adapt, b_star, accept_move, q_loc_l, lw_j):
 
 def _finish(eng, s, sweep_count, draws, nevbuf, n_sweeps, shrink_only,
             stepout_sweeps, active, commit, beta, nev_new, logw, qloc,
-            ubatch, regs):
+            ubatch, regs, g=None):
     """Coordinate/sweep bookkeeping, fresh registers for committing lanes
     and the frozen registers of idle lanes; returns the pass's outputs.
 
@@ -97,7 +140,11 @@ def _finish(eng, s, sweep_count, draws, nevbuf, n_sweeps, shrink_only,
     so_eff = shrink_only
     if stepout_sweeps is not None and not shrink_only:
         so_eff = sweep_count >= stepout_sweeps
-    reg = eng._begin_coord(beta, logw, j_next, so_eff, ubatch, qloc=qloc)
+    reg = eng._begin_coord(beta, logw, j_next, so_eff, ubatch, qloc=qloc,
+                           g=g)
+    logw_j = reg.pop("logw_j", None)
+    if logw_j is not None:  # latent: commit the refreshed bracket width
+        logw = eng._commit_row(logw, j_next, logw_j, gate=commit)
 
     def pick(name, old):
         return torch.where(commit, reg[name], old)
@@ -110,8 +157,8 @@ def _finish(eng, s, sweep_count, draws, nevbuf, n_sweeps, shrink_only,
         return torch.where(active, pick(name, regs[name]), old)
 
     fields = dict(
-        beta=beta, eta=regs["eta"], ld0=regs["ld0"], key=s.key, logw=logw,
-        j=j_next,
+        beta=beta, eta=regs["eta"], ld0=regs["ld0"], key=s.key,
+        ctr=s.ctr + active.any().to(torch.int64), logw=logw, j=j_next,
         phase=keep("phase", s.phase),
         stepdir=keep("stepdir", s.stepdir),
         level=pick("level", s.level),
@@ -127,20 +174,21 @@ def _finish(eng, s, sweep_count, draws, nevbuf, n_sweeps, shrink_only,
     return type(s)(**fields), sweep_count, draws, nevbuf
 
 
-def run_pass(eng, s, sweep_count, draws, nevbuf, n_sweeps: int,
-             adapt: bool, shrink_only, stepout_sweeps=None, u=None):
+def run_pass(eng, s, sweep_count, draws, nevbuf, n_sweeps,
+             adapt: bool, shrink_only, stepout_sweeps=None, u=None, g=None,
+             live=None):
     """One target evaluation + automaton advance for every chain."""
-    active = sweep_count < n_sweeps
+    active = _active(sweep_count, n_sweeps, live)
     nb = eng._n_begin_u
     if u is None:
-        u = _uniforms(eng, s, 1 + nb)
+        r = _draws(eng, s)
+        u, g = r["u"], r.get("g")
     u_shrink = u[:, 0]
     q_loc_l, q_scale_l, lw_j = _pseudo_target(eng, s)
 
     xg = eng.Xt[s.j.long()]  # (C, n) row gather
     quantile = eng.slice_kernel == "quantile"
-    xp_x = eng.quantile_ppf(s.xprop, q_loc_l, q_scale_l) if quantile \
-        else s.xprop
+    xp_x = _to_x(eng, s, s.xprop, q_loc_l, q_scale_l)
     e = s.eta + xg * (xp_x - s.b0)[:, None]
     ld_e = eng._ld_eta(e, eng.y, eng.extra)
     if eng.eval_cache == "scalar":
@@ -175,7 +223,7 @@ def run_pass(eng, s, sweep_count, draws, nevbuf, n_sweeps: int,
     accept_move = shrinking & (f >= s.level) & active
     rej = shrinking & (f < s.level)
     exhausted = rej & (s.n_shrink + 1 >= eng.max_shrink) & active
-    piv = s.w if quantile else s.b0
+    piv = _pivot(eng, s)
     L = torch.where(rej & (s.xprop < piv), s.xprop, L)
     R = torch.where(rej & (s.xprop >= piv), s.xprop, R)
     n_shrink = torch.where(shrinking, s.n_shrink + 1, s.n_shrink)
@@ -202,7 +250,7 @@ def run_pass(eng, s, sweep_count, draws, nevbuf, n_sweeps: int,
                 budL=budL, budR=budR, xprop=xprop_nc, n_shrink=n_shrink)
     return _finish(eng, s, sweep_count, draws, nevbuf, n_sweeps,
                    shrink_only, stepout_sweeps, active, commit, beta,
-                   nev_new, logw, qloc, u[:, 1:1 + nb], regs)
+                   nev_new, logw, qloc, u[:, 1:1 + nb], regs, g)
 
 
 def spec_proposals(eng, s, U):
@@ -217,7 +265,7 @@ def spec_proposals(eng, s, U):
     ``q_loc_l``/``q_scale_l``/``lw_j`` (None unless pseudo_adapt)."""
     K = U.shape[1]
     quantile = eng.slice_kernel == "quantile"
-    piv = s.w if quantile else s.b0
+    piv = _pivot(eng, s)
     xs_sh, Ls_sh, Rs_sh = [], [], []
     Lc, Rc = s.L, s.R
     for k in range(K):
@@ -238,7 +286,7 @@ def spec_proposals(eng, s, U):
     q_loc_l, q_scale_l, lw_j = _pseudo_target(eng, s)
     qloc_k = None if q_loc_l is None else q_loc_l[:, None]
     qscale_k = None if q_scale_l is None else q_scale_l[:, None]
-    xs_eval = eng.quantile_ppf(xs, qloc_k, qscale_k) if quantile else xs
+    xs_eval = _to_x(eng, s, xs, q_loc_l, q_scale_l)
     deltas = xs_eval - s.b0[:, None]
     fprior = eng._coord_lp(s.beta, s.j, xs_eval) - s.lp0[:, None]
     if quantile:
@@ -251,8 +299,9 @@ def spec_proposals(eng, s, U):
                 q_loc_l=q_loc_l, q_scale_l=q_scale_l, lw_j=lw_j)
 
 
-def run_pass_spec(eng, s, sweep_count, draws, nevbuf, n_sweeps: int,
-                  adapt: bool, shrink_only, stepout_sweeps=None, u=None):
+def run_pass_spec(eng, s, sweep_count, draws, nevbuf, n_sweeps,
+                  adapt: bool, shrink_only, stepout_sweeps=None, u=None,
+                  g=None, live=None):
     """K target evaluations + automaton advance per chain per pass.
 
     In Neal's shrinkage the all-rejections proposal path is deterministic
@@ -264,10 +313,11 @@ def run_pass_spec(eng, s, sweep_count, draws, nevbuf, n_sweeps: int,
     evaluations the single-proposal kernel would have consumed."""
     dtype = eng.dtype
     K = eng.spec_k
-    active = sweep_count < n_sweeps
+    active = _active(sweep_count, n_sweeps, live)
     nb = eng._n_begin_u
     if u is None:
-        u = _uniforms(eng, s, K + nb)
+        r = _draws(eng, s)
+        u, g = r["u"], r.get("g")
     p = spec_proposals(eng, s, u[:, :K])
     deltas, fprior = p["deltas"], p["fprior"]
 
@@ -371,4 +421,4 @@ def run_pass_spec(eng, s, sweep_count, draws, nevbuf, n_sweeps: int,
                 budL=budL, budR=budR, xprop=s.xprop, n_shrink=n_shrink)
     return _finish(eng, s, sweep_count, draws, nevbuf, n_sweeps,
                    shrink_only, stepout_sweeps, active, commit, beta,
-                   nev_new, logw, qloc, u[:, K:K + nb], regs)
+                   nev_new, logw, qloc, u[:, K:K + nb], regs, g)

@@ -1,30 +1,43 @@
-"""Philox4x32-10 uniforms for the fused CGGibbs kernels, in plain torch.
+"""Philox4x32-10 uniforms, in plain torch.
 
-Counterpart of ``_uniform`` and the per-core PRNG seeding of
-``mcmcglm_tpu/ops/pallas_cggibbs.py``.  The TPU kernels draw from the
-core's hardware generator, reseeded per (sweep, chain block, coordinate);
-the port uses the counter-based Philox4x32-10 generator (Salmon et al.,
-"Parallel random numbers: as easy as 1, 2, 3", SC 2011) with
+The port's one random stream for the automaton engines: the counter-based
+Philox4x32-10 generator (Salmon et al., "Parallel random numbers: as easy
+as 1, 2, 3", SC 2011) under the key (seed_lo, seed_hi).
 
-    counter = (sweep, j, c, t),    key = (seed_lo, seed_hi)
+* The fused CGGibbs kernels (the counterpart of ``_uniform`` and the
+  per-core PRNG seeding of ``mcmcglm_tpu/ops/pallas_cggibbs.py``) use
 
-for draw t of chain c at coordinate j of sweep s.  Draw 0 is the slice
-level, draw 1 the interval position, draw 2 the step-out split, draw 3 + i
-shrink iteration i.  Every draw is chain-local, so a chain's trajectory
-depends neither on the chain blocking nor on whether a sweep runs as one
-launch or d.  ``csrc/fused_cggibbs.cu`` computes the same function; the
-bits-to-uniform map is the JAX package's: the first word shifted right by
-9, times 2^-23, clamped to at least 1e-12.
+      counter = (sweep, j, c, t)
+
+  for draw t of chain c at coordinate j of sweep s.  Draw 0 is the slice
+  level, draw 1 the interval position, draw 2 the step-out split, draw
+  3 + i shrink iteration i.  Every draw is chain-local, so a chain's
+  trajectory depends neither on the chain blocking nor on whether a sweep
+  runs as one launch or d.  ``csrc/fused_cggibbs.cu`` computes the same
+  function.
+* The free-running passes (:func:`pass_uniforms`) use
+
+      counter = (p_lo, p_hi, c, t)
+
+  for slot t of chain c in the pass with index p (a 64-bit count of the
+  passes that consumed randomness).  The uniforms of a pass depend on its
+  index only, never on how the passes are grouped into blocks.
+
+The bits-to-uniform map is the JAX package's: the first word shifted right
+by 9, times 2^-23, clamped to at least 1e-12, so a uniform lies in
+[1e-12, 1 - 2^-23].
 
 The 32 x 32 -> 64-bit products are taken in int64 on 16-bit halves, so
-that no intermediate leaves the signed 64-bit range.
+that no intermediate leaves the signed 64-bit range.  A key may be a pair
+of ints or an int64 tensor of two words (a state's key on the device).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32", "philox_uniform", "split_seed"]
+__all__ = ["key_tensor", "pass_uniforms", "philox4x32", "philox_uniform",
+           "split_seed"]
 
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -48,7 +61,10 @@ def philox4x32(counter, key, rounds: int = 10):
         torch.as_tensor(v, dtype=torch.int64, device=device) for v in counter
     ])
     c0, c1, c2, c3 = (v & _MASK32 for v in c)
-    k0, k1 = (int(k) & _MASK32 for k in key)
+    if torch.is_tensor(key):  # (2,) int64 words, read on the device
+        k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    else:
+        k0, k1 = (int(k) & _MASK32 for k in key)
     for r in range(rounds):
         if r:
             k0 = (k0 + PHILOX_W0) & _MASK32
@@ -74,5 +90,30 @@ def philox_uniform(seed: int, sweep: int, j: int, t, n_chains: int,
     t = torch.as_tensor(t, dtype=torch.int64, device=device)
     w0 = philox4x32((sweep, j, c, t.reshape(-1, 1) if t.dim() else t),
                     split_seed(seed))[0]
+    return _to_uniform(w0)
+
+
+def _to_uniform(w0):
     u = (w0 >> 9).to(torch.float32) * (1.0 / (1 << 23))
     return torch.clamp(u, min=1e-12)
+
+
+def key_tensor(seed: int, device) -> torch.Tensor:
+    """The Philox key of ``seed`` as an int64 (2,) tensor on ``device``."""
+    return torch.tensor(split_seed(seed), dtype=torch.int64, device=device)
+
+
+def pass_uniforms(key: torch.Tensor, p0: torch.Tensor, n_passes: int,
+                  n_chains: int, width: int) -> torch.Tensor:
+    """float32 uniforms (n_passes, n_chains, width) of the passes with
+    indices p0, p0 + 1, ..., under the (2,) int64 ``key``; ``p0`` is a 0-d
+    int64 tensor.  Row i is the block of pass p0 + i.  Computed on the
+    key's device without reading it on the host, so a CUDA graph can
+    capture it."""
+    dev = key.device
+    p = p0 + torch.arange(n_passes, dtype=torch.int64, device=dev)
+    c = torch.arange(n_chains, dtype=torch.int64, device=dev)
+    t = torch.arange(width, dtype=torch.int64, device=dev)
+    w0 = philox4x32((p[:, None, None] & _MASK32, p[:, None, None] >> 32,
+                     c[None, :, None], t[None, None, :]), key)[0]
+    return _to_uniform(w0)

@@ -44,6 +44,11 @@ class MCMCGLM:
     extra: Optional[Mapping[str, Any]] = None
     offset: Optional[np.ndarray] = None
     device: Optional[str] = None  # where the chains ran
+    # the free-running engine that drew (its ``loop_stats`` count the
+    # blocks, host flag reads and graph captures) and its last state (its
+    # tensors stay on ``device``)
+    sampler: Optional[Any] = None
+    state: Optional[Any] = None
 
     @property
     def n_chains(self) -> int:

@@ -1,5 +1,5 @@
-"""The CUDA kernels (batteries and fused coordinate updates) and the
-engines on the card.
+"""The CUDA kernels (batteries and fused coordinate updates), the engines
+and the free-running engine's CUDA-graph pass loop on the card.
 
 Every test here needs a CUDA GPU and skips elsewhere.  On the card run
 
@@ -349,3 +349,240 @@ def test_bf16_engine_streams_bf16_rows(cuda):
     assert fb.launch_counts["battery_gather_commit"] == 0
     eta_ref = st.beta.double() @ fr.Xt.double()
     assert float((st.eta.double() - eta_ref).abs().max()) < 1e-3
+
+
+# -- the free-running pass loop: CUDA graphs against the eager loop ---------
+
+SAMPLERS = {
+    "stepping_out": dict(tuning={"w": 0.5}),
+    "quantile": dict(slice_kernel="quantile",
+                     tuning={"pseudo_scale": 2.0, "pseudo_adapt": True,
+                             "pseudo_c": 3.0}),
+    "latent": dict(slice_kernel="latent", tuning={"rate": 0.5}),
+    "elliptical": dict(slice_kernel="elliptical",
+                       tuning={"mu": 0.0, "sigma": 2.0}),
+    "genelliptical": dict(slice_kernel="genelliptical",
+                          tuning={"mu": 0.0, "sigma": 2.0, "df": 5.0}),
+    "doubling": dict(slice_kernel="doubling", tuning={"w": 0.5}),
+    "conjugate": dict(coord_sampler="conjugate"),
+}
+
+
+def _loop_engines(name, device, block_passes=16):
+    """The same engine twice: one on the graph loop, one forced onto the
+    eager loop (the switch only tests and the smoke use)."""
+    rng = np.random.default_rng(0)
+    n, d = 300, 4
+    X = np.column_stack([np.ones(n), rng.normal(size=(n, d - 1))])
+    y = rng.normal(X @ np.array([1.0, 1.5, -0.5, 0.3]), 1.0)
+
+    def make():
+        eng = mt.FreeRunCGGibbs(X, y, "gaussian",
+                                mt.IIDPrior(mt.Normal(0, 1), d),
+                                extra={"sd": 1.0}, device=device,
+                                **SAMPLERS[name])
+        eng._block_passes = block_passes
+        return eng
+
+    graph, eager = make(), make()
+    eager._graph_loop = False
+    return graph, eager
+
+
+def _assert_states_equal(a, b):
+    for name, x, z in zip(a._fields, a, b):
+        assert torch.equal(x, z), name
+
+
+@pytest.mark.parametrize("name", list(SAMPLERS))
+def test_graph_loop_equals_eager_loop_bitwise(cuda, name):
+    """warmup, run and pass-bounded runs replayed from CUDA graphs give the
+    eager loop's states and draws bitwise, with one host read per block."""
+    graph, eager = _loop_engines(name, cuda)
+    if name in ("latent", "elliptical", "genelliptical", "stepping_out",
+                "quantile"):
+        assert graph.battery_impl == "cuda3"
+    out = []
+    for eng in (graph, eager):
+        st = eng.init(3, 32)
+        st, wd, _ = eng.warmup(st, 6)
+        st, draws, nevbuf = eng.run(st, 8)
+        sc = dr = nb = None
+        for _ in range(10_000):
+            st, sc, dr, nb = eng.run_passes(st, sc, dr, nb, 5, 37)
+            if bool((sc >= 5).all()):
+                break
+        out.append((st, wd, draws, nevbuf, dr, nb))
+    (s1, *r1), (s2, *r2) = out
+    _assert_states_equal(s1, s2)
+    for x, z in zip(r1, r2):
+        assert torch.equal(x, z)
+    assert bool(torch.isfinite(r1[1]).all())
+    stats = graph.loop_stats
+    assert stats["captures"] >= 3 and stats["capture_seconds"] > 0
+    assert stats["flag_reads"] == stats["blocks"] == eager.loop_stats["blocks"]
+
+
+def test_launch_counts_include_graph_replays(cuda):
+    """A captured block's kernel launches count once per replay, plus the
+    capture's warm-up block, which launches for real."""
+    graph, eager = _loop_engines("stepping_out", cuda, block_passes=8)
+    counts = {}
+    for eng in (graph, eager):
+        st = eng.init(0, 32)
+        before = eng.loop_stats["blocks"]
+        fb.reset_launch_counts()
+        st, _, _ = eng.run(st, 3)
+        torch.cuda.synchronize()
+        counts[eng is graph] = (fb.launch_counts["battery_gather_commit"],
+                                eng.loop_stats["blocks"] - before)
+        # a second call replays the cached graph without a new capture
+        fb.reset_launch_counts()
+        before = eng.loop_stats["blocks"]
+        eng.run(st, 3)
+        torch.cuda.synchronize()
+        assert fb.launch_counts["battery_gather_commit"] == \
+            8 * (eng.loop_stats["blocks"] - before)
+    (g_launch, g_blocks), (e_launch, e_blocks) = counts[True], counts[False]
+    assert g_blocks == e_blocks > 0
+    assert e_launch == 8 * e_blocks
+    assert g_launch == 8 * g_blocks + 8  # + the warm-up block
+    assert graph.loop_stats["captures"] == 1
+
+
+def test_eager_switch_bypasses_captured_graphs(cuda):
+    """A replay runs no Python block; with the graph loop switched off,
+    a configuration captured before runs the eager block again."""
+    graph, _ = _loop_engines("stepping_out", cuda)
+    st = graph.init(0, 8)
+    want = graph.run(st, 2)  # captures
+    calls = []
+    randoms = graph._randoms
+    graph._randoms = lambda *a: calls.append(1) or randoms(*a)
+    graph.run(st, 2)
+    assert not calls
+    graph._graph_loop = False
+    got = graph.run(st, 2)
+    assert calls
+    _assert_states_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_capture_survives_dead_engines(cuda):
+    """A dropped engine frees its captured graphs at once (its cached loops
+    hold no reference back to it), so no collection can destroy a dead
+    engine's graph in the middle of a later capture."""
+    import gc
+    import weakref
+
+    collecting = gc.isenabled()
+    gc.disable()  # reference counting alone must free the dead engines
+    try:
+        for _ in range(3):
+            dead, _ = _loop_engines("stepping_out", cuda)
+            dead.run(dead.init(0, 8), 2)
+            assert dead.loop_stats["captures"] == 1
+            ref = weakref.ref(dead)
+            del dead
+            assert ref() is None
+        graph, _ = _loop_engines("latent", cuda)
+        st, draws, _ = graph.run(graph.init(0, 8), 2)
+        torch.cuda.synchronize()
+    finally:
+        if collecting:
+            gc.enable()
+    assert bool(torch.isfinite(draws).all())
+    assert graph.loop_stats["captures"] == 1
+
+
+def test_run_lengths_share_one_capture(cuda):
+    """The sweep quota rides in the carry: pass-bounded warmups toward
+    different quotas replay one captured block, bitwise the eager loop;
+    the graph cache stays bounded across many run lengths (each ``run``
+    records into a buffer of its own length, so each captures)."""
+    from mcmcglm_tpu_torch import freerun
+
+    graph, eager = _loop_engines("stepping_out", cuda)
+    outs = []
+    for eng in (graph, eager):
+        st = eng.init(0, 16)
+        sc = torch.zeros(16, dtype=torch.int32, device=cuda)
+        st, sc = eng.warmup_passes(st, sc, 4, 100_000)
+        st, sc = eng.warmup_passes(st, sc, 7, 100_000)
+        assert bool((sc == 7).all())
+        outs.append(st)
+    _assert_states_equal(*outs)
+    assert graph.loop_stats["captures"] == 1
+    st = outs[0]
+    for n in range(1, freerun._MAX_GRAPHS + 4):
+        st, draws, _ = graph.run(st, n)
+        assert len(graph._loops) <= freerun._MAX_GRAPHS
+    assert bool(torch.isfinite(draws).all())
+
+
+def test_exhausted_gamma_raises_at_the_flag_read(cuda, monkeypatch):
+    from mcmcglm_tpu_torch import freerun
+
+    graph, _ = _loop_engines("genelliptical", cuda)
+    st = graph.init(0, 8)
+    monkeypatch.setattr(freerun, "standard_gamma",
+                        lambda alpha, u: torch.full(u.shape[:-1], math.nan,
+                                                    device=u.device))
+    with pytest.raises(RuntimeError, match="Marsaglia-Tsang"):
+        graph.run(st, 2)
+
+
+@pytest.mark.parametrize("name", ["latent", "elliptical", "genelliptical",
+                                  "doubling", "conjugate"])
+def test_new_samplers_match_the_gaussian_oracle(cuda, name):
+    rng = np.random.default_rng(0)
+    n, d = 300, 4
+    X = np.column_stack([np.ones(n), rng.normal(size=(n, d - 1))])
+    y = rng.normal(X @ np.array([1.0, 1.5, -0.5, 0.3]), 1.0)
+    cov = np.linalg.inv(X.T @ X + np.eye(d))
+    mean = cov @ (X.T @ y)
+    eng = mt.FreeRunCGGibbs(X, y, "gaussian", mt.IIDPrior(mt.Normal(0, 1), d),
+                            extra={"sd": 1.0}, device=cuda, **SAMPLERS[name])
+    fb.reset_launch_counts()
+    st = eng.init(0, 32)
+    st, _, _ = eng.warmup(st, 50)
+    st, draws, _ = eng.run(st, 300)
+    if name in ("latent", "elliptical", "genelliptical"):
+        assert fb.launch_counts["battery_gather_commit"] > 0
+    post = draws.cpu().numpy()[:, 100:, :].reshape(-1, d)
+    np.testing.assert_allclose(post.mean(0), mean, atol=0.05)
+    np.testing.assert_allclose(post.std(0), np.sqrt(np.diag(cov)), rtol=0.15)
+    eta_ref = st.beta.double() @ eng.Xt.double()
+    assert float((st.eta.double() - eta_ref).abs().max()) < 1e-3
+
+
+def test_run_thinned_device_ess_matches_host(cuda):
+    from mcmcglm_tpu_torch.diagnostics import ess
+    from mcmcglm_tpu_torch.parallel.pooled import ess_from_state
+
+    graph, _ = _loop_engines("stepping_out", cuda)
+    st = graph.init(0, 16)
+    st, _, _ = graph.warmup(st, 30)
+    st, mom, kept, nev, es = graph.run_thinned(st, 60, 2, ess=True)
+    assert kept.shape == (16, 60, 4) and int(es.count) == 60
+    np.testing.assert_allclose(ess_from_state(es).cpu().numpy(),
+                               ess(kept.cpu().numpy()),
+                               rtol=0.05)
+    np.testing.assert_allclose(mom.count.cpu().numpy(), 120.0)
+
+
+def test_failed_capture_raises(cuda):
+    """A pass that reads the device on the host cannot be captured: the
+    loop raises instead of falling back to the eager loop.  (Last in the
+    file: a refused capture leaves the stream's capture state behind.)"""
+    graph, _ = _loop_engines("stepping_out", cuda)
+
+    class HostReadingPrior(mt.IIDPrior):
+        def coord_log_prob(self, beta, j, b):
+            float(b.sum())  # a device read inside the pass
+            return super().coord_log_prob(beta, j, b)
+
+    graph.prior = HostReadingPrior(mt.Normal(0, 1), graph.d)
+    st = graph.init(0, 8)
+    with pytest.raises(RuntimeError):
+        graph.run(st, 1)

@@ -135,8 +135,11 @@ def test_make_beta_prior_forms():
     assert isinstance(mt.make_beta_prior(mt.Normal(), 3), mt.IIDPrior)
     with pytest.raises(ValueError, match="dimension"):
         mt.make_beta_prior(mt.IIDPrior(mt.Normal(), 2), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.make_beta_prior([mt.Normal()] * 3, 3)
+    # the list form is a StackedPrior of the d marginals, as in JAX
+    stacked = mt.make_beta_prior([mt.Normal()] * 3, 3)
+    assert isinstance(stacked, mt.StackedPrior) and stacked.d == 3
+    with pytest.raises(ValueError, match="list length"):
+        mt.make_beta_prior([mt.Normal()] * 2, 3)
 
 
 def test_init_eta_matches_float64_product():
