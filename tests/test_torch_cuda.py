@@ -64,6 +64,7 @@ def _operands(fam, extra, C, n, K, device, seed=0, d=16):
     eta = 0.5 * randn(C, n)
     j = torch.randint(0, d, (C,), generator=g, device=device,
                       dtype=torch.int32)
+    j[0] = 1  # an odd row: misaligned in Xt whenever n % 4 != 0
     xg = Xt[j.long()].contiguous()
     deltas = 0.3 * randn(C, K)
     m = torch.where(rand(n) < 0.9, 1.0 + rand(n), torch.zeros(n, device=device))
@@ -76,9 +77,29 @@ def _operands(fam, extra, C, n, K, device, seed=0, d=16):
                 fprior=0.5 * randn(C, K), scal=scal.contiguous())
 
 
+# (C, n, K): the battery kernel's paths.  n % 4 == 0 takes 16-byte vector
+# loads (bf16 rows in 8 bytes), any other n scalar loads of the same
+# layout; a chain's cluster has the fewest CTAs (at most 8) whose slices
+# fit a register tile of 1,536 observations each, and n beyond 8 tiles
+# (12,288) walks its slices in chunks and reads eta and the row again for
+# the commit; K of 1 and 4 run their own instantiations, every other K the
+# runtime-K one.
+BATTERY_SHAPES = [
+    (1, 1, 1), (5, 257, 2), (64, 1003, 7), (33, 4099, 32),
+    (16, 4096, 4),       # vector loads, K=4, a cluster of 3
+    (16, 10_000, 1),     # the main path's n, vector loads, K=1
+    (7, 10_002, 4),      # n % 4 != 0: misaligned rows, K=4
+    (9, 10_004, 4),      # n % 8 != 0 (bf16 rows in 8-byte vectors)
+    (3, 12_300, 32),     # two chunks, vector loads, runtime K
+    (4, 200_000, 7),     # chunked, vector loads, runtime K
+    (4, 200_003, 4),     # chunked, misaligned rows, K=4
+    (300, 8192, 4),      # more clusters than the card holds at once
+    (257, 10_000, 7),    # the same, runtime K
+]
+
+
 @pytest.mark.parametrize("pair", list(FAMILY_EXTRA))
-@pytest.mark.parametrize("C,n,K", [(1, 1, 1), (5, 257, 2), (64, 1003, 7),
-                                   (33, 4099, 32)])
+@pytest.mark.parametrize("C,n,K", BATTERY_SHAPES)
 def test_kernels_match_plain(cuda, pair, C, n, K):
     fam = mt.check_family(pair[0]).with_link(pair[1])
     extra = FAMILY_EXTRA[pair]
@@ -141,6 +162,39 @@ def test_sums_repeat_bitwise(cuda):
         again = fb.battery_sums(a["eta"], a["xg"], a["deltas"], a["y"],
                                 a["m"], fam, {})
         assert torch.equal(first, again)
+    # the main path's launcher at its shape: C=256, n=10,000, K=4, d=1,000
+    a = _operands(fam, {}, 256, 10_000, 4, cuda, d=1000)
+
+    def gather():
+        return fb.battery_gather_commit(a["j"], a["Xt"], a["eta"],
+                                        a["deltas"], a["fprior"], a["scal"],
+                                        a["y"], a["m"], fam, {})
+
+    lsum, eta_new = gather()
+    for _ in range(5):
+        l2, e2 = gather()
+        assert torch.equal(lsum, l2) and torch.equal(eta_new, e2)
+
+
+@pytest.mark.parametrize("n", [4096, 10_000, 200_000])
+def test_scalar_loads_reduce_like_vector_loads(cuda, n):
+    """Operands that are not 16-byte aligned take scalar loads of the same
+    layout: the sums and the commit equal the aligned run's bitwise."""
+    fam = mt.check_family("binomial")
+    a = _operands(fam, {}, 200, n, 4, cuda)
+    args = ("j", "Xt", "eta", "deltas", "fprior", "scal", "y", "m")
+
+    def run(ops):
+        return fb.battery_gather_commit(*(ops[k] for k in args), fam, {})
+
+    want = run(a)
+    shifted = dict(a)
+    for k in ("eta", "y", "m"):  # one float past a 16-byte boundary
+        buf = torch.empty(a[k].numel() + 1, device=cuda)
+        shifted[k] = buf[1:].view(a[k].shape).copy_(a[k])
+        assert shifted[k].data_ptr() % 16 == 4
+    got = run(shifted)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_kernel_wrappers_reject_bad_operands(cuda):
