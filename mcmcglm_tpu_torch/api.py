@@ -78,9 +78,9 @@ def mcmcglm(
     draws after the init row and ``burnin`` 0), the "normal-normal"
     method with ``engine="freerun"`` (the exact conjugate pass), and the
     fused engine (``engine="fused"``: stepping-out, an IID prior, n within
-    ``MAX_FUSED_N``, ``n_chains`` a multiple of 8; ``n_evals`` is the
-    evaluations of each sweep summed over chains, broadcast to
-    (n_chains, n_samples)).  The lockstep engine (``engine="xla"``, the
+    ``MAX_FUSED_N`` = 65,536 as in the reference, ``n_chains`` a multiple
+    of 8; ``n_evals`` is the evaluations of each sweep summed over chains,
+    broadcast to (n_chains, n_samples)).  The lockstep engine (``engine="xla"``, the
     "naive" mode, "normal-normal" under "auto") and ``mesh`` raise
     NotImplementedError naming their ROADMAP item.
     ``adapt_w`` is accepted for signature parity: the free-running engine

@@ -32,28 +32,54 @@
 // count keeps the TPU kernel's block semantics: per block of bc chains,
 // max_c nL + max_c nR + max_c nShrink, given to every chain of the block.
 //
-// Design: one CTA per chain block, one warp per chain.  The warp's lanes
-// stride over the n observations; a g evaluation is a per-lane partial sum
-// and a butterfly of warp shuffles, in a fixed order, which leaves the same
-// bits in every lane, so the whole slice loop runs warp-uniform with no
-// block synchronisation, and each chain takes only the evaluations it
-// needs.  eta and the ld0 cache live in global memory (at C = 256,
-// n = 10,000 they are 20 MB together, which stays in the 50 MB L2); the X
-// row is staged once per coordinate in shared memory (n floats, 40 KB at
-// n = 10,000), which bounds n at MAX_FUSED_N = 58,016.  Every float
-// operation that the PyTorch version rounds separately is written with
-// __fadd_rn / __fmul_rn, so nvcc cannot contract it into an FMA.
+// What bounds it on an H100: instructions.  A g evaluation is n log
+// densities at a moved predictor, each with its predictor and its cache
+// difference: about 38 instructions per observation and evaluation for
+// binomial/logit on the fall-through paths of CUDA's accurate expf and
+// log1pf (counted in chip_smoke.py), and a coordinate takes nL + nR +
+// nShrink such evaluations per chain plus one density per observation for
+// the cache.  The bytes a coordinate must move (eta in and out, the X row,
+// y) are a few percent of that time at the main shape.
 //
-// fused_sweep runs the same block_coord() as fused_coord_update, once per
-// j, and ld0 is recomputed from eta at the start of every coordinate in
-// both, so a sweep equals d coordinate launches bitwise.
+// Design: one CTA of THREADS = 512 threads per chain, held to 64 registers
+// so that two CTAs share an SM: at C = 256 that is one wave of 256 CTAs
+// on the 132 SMs, 32 warps per SM.  Every coordinate runs one device
+// function, chain_coord(), which
 //
-// What bounds it on an H100: each g evaluation is n log densities (an
-// expf and a log1pf each for binomial/logit) and two L2 reads per
-// observation; a coordinate takes about nL + nR + nShrink + 2 such passes
-// over n per chain.  The known bound of this simple design is occupancy:
-// C / bc CTAs of bc warps, 32 CTAs of 8 warps at C = 256 on 132 SMs, so
-// most SMs idle and each SM has too few warps to hide latency.
+//   1. stages the chain's eta row and the density cache ld0 = ld(eta, y)
+//      in shared memory (8n bytes: 80 KB at n = 10,000, so two CTAs fit an
+//      SM up to n of about 14,000 and one up to about 29,000), with
+//      16-byte loads where the rows are aligned;
+//   2. runs the whole slice loop there, every g evaluation a fixed-order
+//      block reduction: each thread sums its observations i = t, t + 512,
+//      ... in order, a warp butterfly of shuffles follows, the warp
+//      partials go to a double-buffered shared slot array, and after one
+//      __syncthreads every thread adds them in warp order.  So every
+//      thread holds the same bits, the slice loop stays block-uniform, and
+//      an evaluation costs one barrier;
+//   3. writes eta += x_j (bnew - b0) back to the global row once.
+//
+// x_j and y come through the read-only path (__ldg): the two CTAs of an
+// SM share the row in L1.  Where 8n bytes do not fit a block the same
+// function runs on the global rows, eta in place and ld0 in a scratch row,
+// with the same arithmetic in the same order; the caller decides by n
+// (ON_CHIP_N in ops/fused_cggibbs.py) and passes the scratch, whose
+// presence selects the global rows.  fused_sweep is a loop of chain_coord() over j,
+// and eta goes back to global memory after every coordinate, so a sweep
+// equals d coordinate launches bitwise, by construction.
+//
+// The block counts: the chains of one block sit in different CTAs, so
+// each CTA atomicMax-es its nL, nR and nShrink of coordinate j into a
+// zeroed (C / bc, d, 3) int32 scratch, and a second kernel writes every
+// chain's nev = sum_j (max nL + max nR + max nShrink).  Integer maxima do
+// not depend on the order of the atomics, so the counts are exact.  Every
+// float operation that the PyTorch version rounds separately is written
+// with __fadd_rn / __fmul_rn, so nvcc cannot contract it into an FMA.
+//
+// What the layout leaves: eta makes a round trip through global memory at
+// every coordinate, 256 x 1,000 x 80 KB (the row in and out) = 20 GB per
+// full-width sweep, mostly through the 50 MB L2; and a small C leaves SMs
+// idle (one CTA per chain).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +90,9 @@ namespace {
 
 using namespace mcmcglm;
 
-constexpr int MAX_BC = 32;  // chains per block: one warp each
+constexpr int THREADS = 512;  // one CTA per chain
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_BC = 32;  // chains per counting block
 
 // prior ids: keep in step with KERNEL_PRIORS in
 // mcmcglm_tpu_torch/ops/fused_cggibbs.py
@@ -145,32 +173,84 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The CTA's reduction state: the double-buffered warp partials and the
+// buffer the next evaluation writes (block-uniform).
+struct Reducer {
+  float (*slot)[WARPS];
+  int parity;
+
+  // Sum of v over the block in a fixed order; every thread gets the same
+  // bits.  One barrier: the buffer written here was last read before the
+  // previous evaluation's barrier.
+  __device__ __forceinline__ float sum(float v) {
+    v = warp_sum(v);
+    float* s = slot[parity];
+    if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float total = s[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) total = __fadd_rn(total, s[w]);
+    parity ^= 1;
+    return total;
+  }
+};
+
 struct Counts {
   int left, right, shrink;
 };
 
-// One chain's slice update of coordinate j, run by one warp.  eta and ld0
-// are the chain's rows; xs is the X row in shared memory.
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// One chain's slice update of coordinate j, run by the whole CTA.  eta is
+// the chain's global row; work and ld0 are its working copy and density
+// cache, in shared memory or (work == eta) in global memory; x is the X
+// row.  Returns bnew, identical in every thread.
 template <int FAM, int PRIOR>
-__device__ float chain_update(float* __restrict__ eta,
-                              float* __restrict__ ld0,
-                              const float* __restrict__ xs,
-                              const float* __restrict__ y, const Params& p,
-                              uint32_t j, uint32_t c, float b0, Counts& cnt) {
-  const int lane = threadIdx.x & 31;
+__device__ float chain_coord(float* eta, float* work, float* ld0,
+                             const float* __restrict__ x,
+                             const float* __restrict__ y, const Params& p,
+                             uint32_t j, uint32_t c, float b0, Reducer& red,
+                             Counts& cnt) {
   const int n = p.n;
-  for (int i = lane; i < n; i += 32)
-    ld0[i] = ld_rel<FAM>(eta[i], y[i], p.fparam);
+  const int t0 = threadIdx.x;
+  // 16-byte groups where every row is aligned (a layout of its own: the
+  // previous coordinate's commit may have used the other one)
+  const bool vec = (n & 3) == 0 && aligned16(eta) && aligned16(work) &&
+                   aligned16(ld0) && aligned16(x) && aligned16(y);
+  __syncthreads();
+  if (vec) {
+    for (int q = t0; q < (n >> 2); q += THREADS) {
+      const float4 e = reinterpret_cast<const float4*>(eta)[q];
+      const float4 v = __ldg(reinterpret_cast<const float4*>(y) + q);
+      if (work != eta) reinterpret_cast<float4*>(work)[q] = e;
+      // one density at a time: four live ones spill the gaussian kernels
+      float* l = ld0 + 4 * q;
+      l[0] = ld_rel<FAM>(e.x, v.x, p.fparam);
+      l[1] = ld_rel<FAM>(e.y, v.y, p.fparam);
+      l[2] = ld_rel<FAM>(e.z, v.z, p.fparam);
+      l[3] = ld_rel<FAM>(e.w, v.w, p.fparam);
+    }
+  } else {
+    for (int i = t0; i < n; i += THREADS) {
+      const float e = eta[i];
+      if (work != eta) work[i] = e;
+      ld0[i] = ld_rel<FAM>(e, __ldg(y + i), p.fparam);
+    }
+  }
+  __syncthreads();  // the evaluations read other threads' staged entries
   const float lp0 = prior_rel<PRIOR>(b0, p);
 
   auto g = [&](float b) {
     const float db = __fsub_rn(b, b0);
     float acc = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float e = __fadd_rn(eta[i], __fmul_rn(xs[i], db));
-      acc = __fadd_rn(acc, __fsub_rn(ld_rel<FAM>(e, y[i], p.fparam), ld0[i]));
+    for (int i = t0; i < n; i += THREADS) {
+      const float e = __fadd_rn(work[i], __fmul_rn(__ldg(x + i), db));
+      acc = __fadd_rn(acc,
+                      __fsub_rn(ld_rel<FAM>(e, __ldg(y + i), p.fparam), ld0[i]));
     }
-    return __fadd_rn(warp_sum(acc), __fsub_rn(prior_rel<PRIOR>(b, p), lp0));
+    return __fadd_rn(red.sum(acc), __fsub_rn(prior_rel<PRIOR>(b, p), lp0));
   };
   auto uniform = [&](uint32_t t) {
     return philox_uniform(p.sweep, j, c, t, p.key0, p.key1);
@@ -217,93 +297,118 @@ __device__ float chain_update(float* __restrict__ eta,
     }
   }
 
+  // the commit: each entry is written from its own working copy, and work
+  // is only read since the staging barrier, so any layout will do
   const float db = __fsub_rn(bnew, b0);
-  for (int i = lane; i < n; i += 32)
-    eta[i] = __fadd_rn(eta[i], __fmul_rn(xs[i], db));
+  if (vec) {
+    for (int q = t0; q < (n >> 2); q += THREADS) {
+      const float4 e = reinterpret_cast<const float4*>(work)[q];
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x) + q);
+      reinterpret_cast<float4*>(eta)[q] = make_float4(
+          __fadd_rn(e.x, __fmul_rn(v.x, db)), __fadd_rn(e.y, __fmul_rn(v.y, db)),
+          __fadd_rn(e.z, __fmul_rn(v.z, db)), __fadd_rn(e.w, __fmul_rn(v.w, db)));
+    }
+  } else {
+    for (int i = t0; i < n; i += THREADS)
+      eta[i] = __fadd_rn(work[i], __fmul_rn(__ldg(x + i), db));
+  }
   return bnew;
 }
 
-// Coordinate j of the CTA's chain block: stage the X row, update every
-// chain (one warp each), return the block's evaluation count.  beta of
-// chain c is read at bin[c * bstride] and written at bout[c * bstride].
+// Coordinate j of the CTA's chain: the update, beta_j at *bout, and the
+// chain's counts into the block maxima at cnt[(block, slot, 0..2)].
 template <int FAM, int PRIOR>
-__device__ int block_coord(float* eta, float* ld0,
-                           const float* __restrict__ xrow,
-                           const float* __restrict__ y, const float* bin,
-                           float* bout, int bstride, const Params& p,
-                           int j) {
-  extern __shared__ float s_x[];
-  __shared__ int s_cnt[3][MAX_BC];
-  // the previous coordinate is done with s_x and s_cnt
-  __syncthreads();
-  for (int i = threadIdx.x; i < p.n; i += blockDim.x) s_x[i] = xrow[i];
-  __syncthreads();
+__device__ __forceinline__ void block_coord(
+    float* eta, float* work, float* ld0, const float* __restrict__ x,
+    const float* __restrict__ y, const float* bin, float* bout,
+    int32_t* cnt, int slot, const Params& p, int j, Reducer& red) {
+  const uint32_t c = blockIdx.x;
+  Counts k;
+  const float bnew = chain_coord<FAM, PRIOR>(eta, work, ld0, x, y, p,
+                                             (uint32_t)j, c, *bin, red, k);
+  if (threadIdx.x == 0) {
+    *bout = bnew;
+    int32_t* m = cnt + ((size_t)(c / p.bc) * p.d + slot) * 3;
+    atomicMax(m, k.left);
+    atomicMax(m + 1, k.right);
+    atomicMax(m + 2, k.shrink);
+  }
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * p.bc + warp;
-  const size_t row = (size_t)c * p.n;
-  Counts cnt;
-  const float bnew = chain_update<FAM, PRIOR>(
-      eta + row, ld0 + row, s_x, y, p, (uint32_t)j, (uint32_t)c,
-      bin[(size_t)c * bstride], cnt);
-  if ((threadIdx.x & 31) == 0) {
-    bout[(size_t)c * bstride] = bnew;
-    s_cnt[0][warp] = cnt.left;
-    s_cnt[1][warp] = cnt.right;
-    s_cnt[2][warp] = cnt.shrink;
-  }
-  __syncthreads();
-  int ml = 0, mr = 0, ms = 0;
-  for (int w = 0; w < p.bc; ++w) {
-    ml = max(ml, s_cnt[0][w]);
-    mr = max(mr, s_cnt[1][w]);
-    ms = max(ms, s_cnt[2][w]);
-  }
-  return ml + mr + ms;
+// The chain's rows: eta and ld0 in dynamic shared memory when there is no
+// global scratch, else eta in place and ld0 in the scratch.
+struct Rows {
+  float *eta, *work, *ld0;
+};
+
+__device__ __forceinline__ Rows chain_rows(float* eta, float* ld0g, int n) {
+  extern __shared__ float4 s_dyn[];  // 16-byte aligned
+  float* s = reinterpret_cast<float*>(s_dyn);
+  const size_t row = (size_t)blockIdx.x * n;
+  if (ld0g == nullptr) return Rows{eta + row, s, s + n};
+  return Rows{eta + row, eta + row, ld0g + row};
 }
 
 template <int FAM, int PRIOR>
-__global__ void __launch_bounds__(MAX_BC * 32)
-fused_coord_kernel(float* eta, float* ld0, const float* bj_in, float* bj_out,
-                   int32_t* nev, const float* __restrict__ xj,
+__global__ void __launch_bounds__(THREADS, 2)
+fused_coord_kernel(float* eta, float* ld0g, const float* bj_in,
+                   float* bj_out, int32_t* cnt, const float* __restrict__ xj,
                    const float* __restrict__ y, Params p, int j) {
-  const int total =
-      block_coord<FAM, PRIOR>(eta, ld0, xj, y, bj_in, bj_out, 1, p, j);
-  if ((threadIdx.x & 31) == 0)
-    nev[blockIdx.x * p.bc + (threadIdx.x >> 5)] = total;
+  __shared__ float s_slot[2][WARPS];
+  Reducer red{s_slot, 0};
+  const Rows r = chain_rows(eta, ld0g, p.n);
+  block_coord<FAM, PRIOR>(r.eta, r.work, r.ld0, xj, y, bj_in + blockIdx.x,
+                          bj_out + blockIdx.x, cnt, 0, p, j, red);
 }
 
 template <int FAM, int PRIOR>
-__global__ void __launch_bounds__(MAX_BC * 32)
-fused_sweep_kernel(float* eta, float* ld0, float* beta, int32_t* nev,
+__global__ void __launch_bounds__(THREADS, 2)
+fused_sweep_kernel(float* eta, float* ld0g, float* beta, int32_t* cnt,
                    const float* __restrict__ Xt, const float* __restrict__ y,
                    Params p) {
-  int total = 0;
+  __shared__ float s_slot[2][WARPS];
+  Reducer red{s_slot, 0};
+  const Rows r = chain_rows(eta, ld0g, p.n);
+  float* b = beta + (size_t)blockIdx.x * p.d;
   for (int j = 0; j < p.d; ++j)
-    total += block_coord<FAM, PRIOR>(eta, ld0, Xt + (size_t)j * p.n, y,
-                                     beta + j, beta + j, p.d, p, j);
-  if ((threadIdx.x & 31) == 0)
-    nev[blockIdx.x * p.bc + (threadIdx.x >> 5)] = total;
+    block_coord<FAM, PRIOR>(r.eta, r.work, r.ld0, Xt + (size_t)j * p.n, y,
+                            b + j, b + j, cnt, j, p, j, red);
 }
 
-constexpr int STATIC_SMEM = 3 * MAX_BC * 4;
-constexpr int MAX_SMEM = 232448;  // a block's limit on sm_90
+// nev[c] = sum over the d slots of chain c's block of max nL + max nR +
+// max nShrink
+__global__ void block_counts_kernel(const int32_t* __restrict__ cnt,
+                                    int32_t* nev, int C, int bc, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const int32_t* m = cnt + (size_t)(c / bc) * d * 3;
+  int total = 0;
+  for (int k = 0; k < 3 * d; ++k) total += m[k];
+  nev[c] = total;
+}
 
-template <typename Kernel, typename... Args>
-int launch_kernel(Kernel kernel, int C, const Params& p, cudaStream_t s,
-                  Args... args) {
-  const int smem = p.n * (int)sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
+// The update kernel, then the counts.  The shared rows take 8n bytes; the
+// opt-in above 48 KB is set at every launch, since the attribute belongs to
+// the current device's context (a host call, allowed during graph capture),
+// and fails for rows beyond the block's limit.
+template <auto kernel, typename... Args>
+int launch_kernel(int C, const Params& p, const float* ld0g, int32_t* cnt,
+                  int32_t* nev, cudaStream_t s, Args... args) {
+  const int smem = ld0g == nullptr ? 8 * p.n : 0;
+  const cudaError_t allowed = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (allowed != cudaSuccess) return (int)allowed;
+  kernel<<<C, THREADS, smem, s>>>(args...);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  kernel<<<C / p.bc, p.bc * 32, smem, s>>>(args...);
+  block_counts_kernel<<<(C + 255) / 256, 256, 0, s>>>(cnt, nev, C, p.bc,
+                                                      p.d);
   return (int)cudaGetLastError();
 }
 
 bool bad_shape(int C, const Params& p) {
   return C < 1 || p.n < 1 || p.d < 1 || p.bc < 1 || p.bc > MAX_BC ||
-         C % p.bc != 0 || p.n * 4 + STATIC_SMEM > MAX_SMEM ||
-         p.max_stepouts < 0 || p.max_shrink < 0;
+         C % p.bc != 0 || p.max_stepouts < 0 || p.max_shrink < 0;
 }
 
 Params make_params(int n, int d, int bc, uint32_t key0, uint32_t key1,
@@ -341,14 +446,18 @@ Params make_params(int n, int d, int bc, uint32_t key0, uint32_t key1,
 
 // Plain C entry points, bound from Python with ctypes.  Each returns a CUDA
 // error code (0 on success): cudaErrorInvalidValue for operands outside
-// the kernel's limits, else cudaGetLastError() after the launch.  Pointers
-// are device pointers to contiguous float32 (int32 for nev) tensors; eta
-// (C, n) and beta are updated in place, ld0 (C, n) is scratch; the launch
-// goes on the given stream and does not synchronise.
+// the kernel's limits, else cudaGetLastError() after the launches.
+// Pointers are device pointers to contiguous float32 (int32 for nev and
+// cnt) tensors; eta (C, n) and beta are updated in place; ld0 is a (C, n)
+// scratch that selects the global rows, or null for the shared rows (an
+// error where 8n bytes exceed a block's shared memory); cnt is the
+// zeroed (C / bc, d, 3) scratch of the block maxima (d = 1 for a
+// coordinate).  Two launches (the update, then the counts) go on the
+// given stream, which is not synchronised.
 
 // replaces mcmcglm_tpu/ops/pallas_cggibbs.py::make_fused_coord_update
 extern "C" int fused_coord_update(float* eta, float* ld0, const float* bj_in,
-                                  float* bj_out, int32_t* nev,
+                                  float* bj_out, int32_t* cnt, int32_t* nev,
                                   const float* xj, const float* y, int C,
                                   int n, int bc, int j, uint32_t key0,
                                   uint32_t key1, uint32_t sweep, float w,
@@ -361,8 +470,8 @@ extern "C" int fused_coord_update(float* eta, float* ld0, const float* bj_in,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MCMCGLM_COORD_CASE(F, P)                                           \
   case MCMCGLM_PAIR_KEY(F, P):                                             \
-    return launch_kernel(fused_coord_kernel<F, P>, C, p, s, eta, ld0,      \
-                         bj_in, bj_out, nev, xj, y, p, j);
+    return launch_kernel<fused_coord_kernel<F, P>>(                       \
+        C, p, ld0, cnt, nev, s, eta, ld0, bj_in, bj_out, cnt, xj, y, p, j);
 #define MCMCGLM_COORD_FAMILY(F) MCMCGLM_FOR_EACH_PRIOR(MCMCGLM_COORD_CASE, F)
   switch (MCMCGLM_PAIR_KEY(fam, prior)) {
     MCMCGLM_FOR_EACH_FAMILY(MCMCGLM_COORD_FAMILY)
@@ -374,20 +483,21 @@ extern "C" int fused_coord_update(float* eta, float* ld0, const float* bj_in,
 }
 
 // replaces mcmcglm_tpu/ops/pallas_cggibbs.py::make_fused_sweep
-extern "C" int fused_sweep(float* eta, float* ld0, float* beta, int32_t* nev,
-                           const float* Xt, const float* y, int C, int n,
-                           int d, int bc, uint32_t key0, uint32_t key1,
-                           uint32_t sweep, float w, int max_stepouts,
-                           int max_shrink, int fam, float fparam, int prior,
-                           float p0, float p1, float p2, void* stream) {
+extern "C" int fused_sweep(float* eta, float* ld0, float* beta, int32_t* cnt,
+                           int32_t* nev, const float* Xt, const float* y,
+                           int C, int n, int d, int bc, uint32_t key0,
+                           uint32_t key1, uint32_t sweep, float w,
+                           int max_stepouts, int max_shrink, int fam,
+                           float fparam, int prior, float p0, float p1,
+                           float p2, void* stream) {
   const Params p = make_params(n, d, bc, key0, key1, sweep, w, max_stepouts,
                                max_shrink, fparam, p0, p1, p2);
   if (bad_shape(C, p)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MCMCGLM_SWEEP_CASE(F, P)                                           \
-  case MCMCGLM_PAIR_KEY(F, P):                                             \
-    return launch_kernel(fused_sweep_kernel<F, P>, C, p, s, eta, ld0, beta, \
-                         nev, Xt, y, p);
+#define MCMCGLM_SWEEP_CASE(F, P)                                            \
+  case MCMCGLM_PAIR_KEY(F, P):                                              \
+    return launch_kernel<fused_sweep_kernel<F, P>>(                        \
+        C, p, ld0, cnt, nev, s, eta, ld0, beta, cnt, Xt, y, p);
 #define MCMCGLM_SWEEP_FAMILY(F) MCMCGLM_FOR_EACH_PRIOR(MCMCGLM_SWEEP_CASE, F)
   switch (MCMCGLM_PAIR_KEY(fam, prior)) {
     MCMCGLM_FOR_EACH_FAMILY(MCMCGLM_SWEEP_FAMILY)

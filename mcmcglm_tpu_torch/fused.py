@@ -9,8 +9,8 @@ commit) is one fused computation over all chains:
 coordinate (``ops/fused_cggibbs.py``).
 
 Scope as in the JAX package: an :class:`~.models.priors.IIDPrior`, the
-stepping-out kernel, and n within the kernels' limit (``MAX_FUSED_N``,
-one X row in a block's shared memory).  The engine resolves ``impl`` to
+stepping-out kernel, and n within the JAX package's limit
+(``MAX_FUSED_N`` = 65,536).  The engine resolves ``impl`` to
 ``"cuda"`` on a CUDA device for a family/link pair in ``KERNEL_FAMILIES``
 and a prior in ``KERNEL_PRIORS``, and to ``"torch"`` (the plain PyTorch
 versions) otherwise; ``impl_reason`` says why.
@@ -90,9 +90,8 @@ class FusedCGGibbs:
             )
         if self.n > MAX_FUSED_N:
             raise ValueError(
-                f"n={self.n} exceeds the fused kernels' limit MAX_FUSED_N="
-                f"{MAX_FUSED_N} (one X row in a block's shared memory); use "
-                "FreeRunCGGibbs"
+                f"n={self.n} exceeds the fused engine's limit MAX_FUSED_N="
+                f"{MAX_FUSED_N} (the JAX package's); use FreeRunCGGibbs"
             )
         self.Xt = X.T.contiguous().to(self.device)  # (d, n)
         self.y = _tensor(y, torch.float32, self.device).reshape(-1)

@@ -106,11 +106,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.battery_gather_commit.argtypes = gather
     lib.battery_gather_commit_bf16.argtypes = gather
     lib.fused_coord_update.argtypes = [
-        P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, I, F, I, F, F, F,
-        P,
+        P, P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, I, F, I, F, F,
+        F, P,
     ]
     lib.fused_sweep.argtypes = [
-        P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, I, F, I, F, F, F, P,
+        P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, I, F, I, F, F, F,
+        P,
     ]
     for fn in (lib.battery_sums, lib.battery_commit,
                lib.battery_gather_commit, lib.battery_gather_commit_bf16,

@@ -54,6 +54,7 @@ from .philox import philox_uniform, split_seed
 __all__ = [
     "KERNEL_PRIORS",
     "MAX_FUSED_N",
+    "ON_CHIP_N",
     "fused_coord_update",
     "fused_sweep",
     "kernel_prior",
@@ -63,9 +64,14 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-# the kernels stage one X row (n float32) in a block's shared memory:
-# 232,448 bytes on sm_90, less the 384 bytes of the block's counters
-MAX_FUSED_N = (232_448 - 384) // 4
+# the JAX package's limit (n padded to 128 within 65,536), so the fused
+# engine takes exactly the n that the reference takes
+MAX_FUSED_N = 65_536
+# the largest n whose eta and density-cache rows (8n bytes) fit one block's
+# shared memory, 232,448 bytes on sm_90 less the 128 bytes of the block's
+# reduction slots.  Above it the launchers pass the kernels a (C, n) cache
+# scratch, and they run the same arithmetic on the global rows.
+ON_CHIP_N = (232_448 - 128) // 8
 
 # prior class -> (kernel prior id, parameter names).  Ids match the
 # PRIOR_* enum in csrc/fused_cggibbs.cu.
@@ -252,6 +258,22 @@ def _prepare(eta, y, family, extra, dist, block_chains):
     return load_library(), C, n, kf[0], kf[1], kp[0], kp[1]
 
 
+def _scratch(eta, block_chains, d):
+    """The kernels' scratch: the (C, n) density cache where a row does not
+    fit shared memory (else None), the zeroed (C / block_chains, d, 3)
+    int32 block maxima, and nev (C,)."""
+    C, n = eta.shape
+    ld0 = torch.empty_like(eta) if n > ON_CHIP_N else None
+    cnt = torch.zeros((C // block_chains, d, 3), dtype=torch.int32,
+                      device=eta.device)
+    nev = torch.empty(C, dtype=torch.int32, device=eta.device)
+    return ld0, cnt, nev
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def fused_coord_update(eta, beta_j, x_j, y, family, extra, dist, *, j: int,
                        seed: int, sweep: int, w: float, block_chains: int = 8,
                        max_stepouts: int = 128, max_shrink: int = 64):
@@ -269,17 +291,17 @@ def fused_coord_update(eta, beta_j, x_j, y, family, extra, dist, *, j: int,
     _check("beta_j", beta_j, (C,), torch.float32, eta.device)
     _check("x_j", x_j, (n,), torch.float32, eta.device)
     eta_out = eta.clone()
-    ld0 = torch.empty_like(eta)
     bj_out = torch.empty_like(beta_j)
-    nev = torch.empty(C, dtype=torch.int32, device=eta.device)
+    ld0, cnt, nev = _scratch(eta, block_chains, 1)
     key0, key1 = split_seed(seed)
     with torch.cuda.device(eta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_coord_update(
-            eta_out.data_ptr(), ld0.data_ptr(), beta_j.data_ptr(),
-            bj_out.data_ptr(), nev.data_ptr(), x_j.data_ptr(), y.data_ptr(),
-            C, n, block_chains, j, key0, key1, sweep, w, max_stepouts,
-            max_shrink, fid, fparam, pid, *pp, stream,
+            eta_out.data_ptr(), _ptr(ld0), beta_j.data_ptr(),
+            bj_out.data_ptr(), cnt.data_ptr(), nev.data_ptr(),
+            x_j.data_ptr(), y.data_ptr(), C, n, block_chains, j, key0, key1,
+            sweep, w, max_stepouts, max_shrink, fid, fparam, pid, *pp,
+            stream,
         )
     _raise_on(err, "fused_coord_update")
     launch_counts["fused_coord_update"] += 1
@@ -306,16 +328,15 @@ def fused_sweep(eta, beta, Xt, y, family, extra, dist, *, seed: int,
     _check("Xt", Xt, (d, n), torch.float32, eta.device)
     eta_out = eta.clone()
     beta_out = beta.clone()
-    ld0 = torch.empty_like(eta)
-    nev = torch.empty(C, dtype=torch.int32, device=eta.device)
+    ld0, cnt, nev = _scratch(eta, block_chains, d)
     key0, key1 = split_seed(seed)
     with torch.cuda.device(eta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_sweep(
-            eta_out.data_ptr(), ld0.data_ptr(), beta_out.data_ptr(),
-            nev.data_ptr(), Xt.data_ptr(), y.data_ptr(), C, n, d,
-            block_chains, key0, key1, sweep, w, max_stepouts, max_shrink,
-            fid, fparam, pid, *pp, stream,
+            eta_out.data_ptr(), _ptr(ld0), beta_out.data_ptr(),
+            cnt.data_ptr(), nev.data_ptr(), Xt.data_ptr(), y.data_ptr(), C,
+            n, d, block_chains, key0, key1, sweep, w, max_stepouts,
+            max_shrink, fid, fparam, pid, *pp, stream,
         )
     _raise_on(err, "fused_sweep")
     launch_counts["fused_sweep"] += 1

@@ -1,4 +1,5 @@
-"""Old against new battery kernel, and the main path around it, on one GPU.
+"""Old against new battery and fused kernels, and the paths around them,
+on one GPU.
 
     python scripts/torch_battery_ab.py --parent build/parent [--out FILE]
 
@@ -19,7 +20,15 @@ tree's kernels there), and measures in each, on the card:
   (``battery_impl="auto"``, graph loop): ms per pass and sweeps/s over
   ``--sweeps`` sampling sweeps after ``--warmup`` warmup sweeps, graph
   captures excluded, and the battery's device time per pass under
-  ``torch.profiler``.
+  ``torch.profiler``;
+* ``fused_coord_update`` (one coordinate) and ``fused_sweep`` (d=16) on
+  the operands of ``chip_smoke.py`` phase 3b (C=256, n=10,000,
+  binomial/logit, Normal(0, 1), w=0.5, block_chains=8), as device time by
+  replays of a captured CUDA graph of 20 launches;
+* the full-width fused path, by ``chip_smoke.fused_path`` (phase 4b:
+  ``FusedCGGibbs`` at d=1,000, ``FUSED_SWEEPS`` sweeps at granularity
+  "sweep", then one by coordinate launches): ms per sweep on the host
+  clock for each granularity.
 
 It prints one line per worker, then the card's name and power limit, and
 writes every number to ``--out`` as JSON.
@@ -138,6 +147,20 @@ def main_path(mt):
                 device_ops_per_pass=len(dev) / n_prof)
 
 
+def fused_times(mt, fc):
+    smoke = load_smoke()
+    eng, st = smoke.fused_problem("binomial", mt.Normal(0.0, 1.0), C, N, 16,
+                                  seed=1)
+    args = (eng.family, eng.extra, eng.prior.dist)
+    kw = dict(seed=st.seed, sweep=0, w=0.5, block_chains=eng.block_chains)
+    b0 = st.beta[:, 0].contiguous()
+    return dict(
+        fused_coord_ms=smoke.graph_ms(lambda: fc.fused_coord_update(
+            st.eta, b0, eng.Xt[0], eng.y, *args, j=0, **kw)),
+        fused_sweep_d16_ms=smoke.graph_ms(lambda: fc.fused_sweep(
+            st.eta, st.beta, eng.Xt, eng.y, *args, **kw)))
+
+
 def worker(root):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -146,6 +169,7 @@ def worker(root):
     import mcmcglm_tpu_torch as mt
     from mcmcglm_tpu_torch.ops import _build
     from mcmcglm_tpu_torch.ops import freerun_batteries as fb
+    from mcmcglm_tpu_torch.ops import fused_cggibbs as fc
 
     if not os.path.abspath(mt.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {mt.__file__}, not the tree {root}")
@@ -156,6 +180,10 @@ def worker(root):
     rec = dict(root=root, build_s=time.perf_counter() - t0)
     rec.update(kernel_times(fb))
     rec.update(main_path(mt))
+    rec.update(fused_times(mt, fc))
+    ms = load_smoke().fused_path()[1]
+    rec.update(fused_ms_per_sweep=ms["sweep"],
+               fused_coord_ms_per_sweep=ms["coord"])
     print(json.dumps(rec), flush=True)
 
 

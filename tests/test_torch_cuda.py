@@ -338,6 +338,50 @@ def test_fused_kernels_at_ragged_shapes(cuda, C, n, block_chains):
     _assert_fused_matches_plain(got, want[:3], want[3], block_chains)
 
 
+# (C, n, d, block_chains): the largest rows on chip (n = 29,000, one CTA
+# per SM, and ON_CHIP_N itself), the global-row path above it (n % 4 != 0
+# takes scalar loads; n = 65,536 is MAX_FUSED_N), scalar loads on chip, and
+# one block's counts spread over 32 CTAs
+LARGE_FUSED_SHAPES = [(8, 29_000, 2, 8), (8, fc.ON_CHIP_N, 2, 8),
+                      (8, fc.ON_CHIP_N + 1, 2, 8), (8, 65_536, 2, 8),
+                      (16, 10_001, 2, 8), (64, 1003, 3, 32)]
+
+
+@pytest.mark.parametrize("C,n,d,block_chains", LARGE_FUSED_SHAPES)
+def test_fused_kernels_on_chip_and_global_rows(cuda, C, n, d, block_chains):
+    """Both row paths and cross-CTA block counts against the plain version;
+    the sweep equals d coordinate launches bitwise, and block_chains=1
+    gives the same moves with each chain's own counts, at most the
+    block's."""
+    pair = ("binomial", "logit")
+    eng, st = _fused_engine(pair, mt.Normal(), C, n, d, cuda,
+                            block_chains=block_chains)
+    kw = dict(seed=st.seed, sweep=1, w=0.5, block_chains=block_chains)
+    got = fc.fused_sweep(st.eta, st.beta, eng.Xt, eng.y, eng.family,
+                         eng.extra, eng.prior.dist, **kw)
+    want = fc.plain_fused_sweep(st.eta, st.beta, eng.Xt, eng.y,
+                                **eng._plain_fns(), **kw)
+    _assert_fused_matches_plain(got, want[:3], want[3], block_chains)
+    eta, beta = st.eta, st.beta.clone()
+    nev = torch.zeros_like(got[2])
+    for j in range(d):
+        eta, bj, nev_j = fc.fused_coord_update(
+            eta, beta[:, j].contiguous(), eng.Xt[j], eng.y, eng.family,
+            eng.extra, eng.prior.dist, j=j, **kw)
+        beta[:, j] = bj
+        nev += nev_j
+    assert torch.equal(eta, got[0]) and torch.equal(beta, got[1])
+    assert torch.equal(nev, got[2])
+    own = fc.fused_sweep(st.eta, st.beta, eng.Xt, eng.y, eng.family,
+                         eng.extra, eng.prior.dist,
+                         **dict(kw, block_chains=1))
+    torch.cuda.synchronize()
+    assert torch.equal(own[0], got[0]) and torch.equal(own[1], got[1])
+    blocks = own[2].view(-1, block_chains)
+    assert bool((got[2].view(-1, block_chains)[:, 0]
+                 >= blocks.amax(1)).all())
+
+
 def test_fused_wrappers_reject_bad_operands(cuda):
     eng, st = _fused_engine(("binomial", "logit"), mt.Normal(), 16, 100, 3,
                             cuda)

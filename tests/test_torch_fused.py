@@ -174,6 +174,65 @@ def test_draws_do_not_depend_on_block_chains_but_counts_do():
     assert bool((out[16][2] >= out[8][2]).all())
 
 
+def test_block_chains_one_counts_each_chains_own_evaluations():
+    """At block_chains=1 nev is each chain's own nL + nR + nShrink (the
+    chain updated alone, on its own draws); at block_chains=8 it is the
+    block's max nL + max nR + max nShrink, so at least the largest own
+    count of the block, on the same draws."""
+    eng, st = _engine_inputs()
+    fns = eng._plain_fns()
+    kw = dict(seed=st.seed, sweep=1, w=0.5)
+    b0, x0 = st.beta[:, 0], eng.Xt[0]
+    runs = {bc: fc.plain_fused_coord_update(st.eta, b0, x0, eng.y, j=0,
+                                            block_chains=bc, **fns, **kw)
+            for bc in (1, 8)}
+    own = []
+    for c in range(16):
+        def chain_c(seed, sweep, j, t, n_chains, device, c=c):
+            return philox_uniform(seed, sweep, j, t, 16, device)[:, c:c + 1]
+
+        eta_c, b_c, nev_c, _ = fc.plain_fused_coord_update(
+            st.eta[c:c + 1], b0[c:c + 1], x0, eng.y, j=0, block_chains=1,
+            uniform_fn=chain_c, **fns, **kw)
+        torch.testing.assert_close(b_c, runs[1][1][c:c + 1], rtol=0,
+                                   atol=0)
+        own.append(int(nev_c))
+    own = torch.tensor(own, dtype=torch.int32)
+    assert torch.equal(runs[1][2], own)
+    # the same draws, so the same moves; one count per block, at least
+    # the block's largest own count
+    assert torch.equal(runs[8][0], runs[1][0])
+    assert torch.equal(runs[8][1], runs[1][1])
+    blocks = runs[8][2].view(2, 8)
+    assert bool((blocks == blocks[:, :1]).all())
+    assert bool((blocks[:, 0] >= own.view(2, 8).amax(1)).all())
+    assert bool((runs[8][2] >= own).all())
+    assert not torch.equal(runs[8][2], own)
+
+
+def test_n_limit_is_the_reference_limit():
+    """The port's fused engine takes exactly the n that the JAX package's
+    takes: n padded to 128 within MAX_FUSED_N = 65,536."""
+    assert fc.MAX_FUSED_N == pallas_cggibbs.MAX_FUSED_N == 65_536
+    assert fc.ON_CHIP_N < fc.MAX_FUSED_N
+    for n, ok in ((65_536, True), (65_537, False)):
+        X = np.ones((n, 1), np.float32)
+        y = np.zeros(n, np.float32)
+        makers = (
+            lambda: JaxFused(X, y, "gaussian", mg.IIDPrior(mg.Normal(0, 1), 1),
+                             tuning={"w": 0.5}),
+            lambda: mt.FusedCGGibbs(X, y, "gaussian",
+                                    mt.IIDPrior(mt.Normal(0, 1), 1),
+                                    tuning={"w": 0.5}, device="cpu"),
+        )
+        for make in makers:
+            if ok:
+                make()
+            else:
+                with pytest.raises(ValueError, match="exceeds"):
+                    make()
+
+
 def test_gaussian_conjugate_oracle_through_fused_sweep():
     rng = np.random.default_rng(0)
     n, d = 200, 3
