@@ -5,17 +5,23 @@ all six slice kernels and the exact conjugate coordinate draws on a CUDA
 GPU, a block of passes per CUDA graph replay, its speculative proposal
 batteries in hand-written CUDA kernels (``csrc/freerun_battery.cu``), and
 the fused engine (``FusedCGGibbs``, ``engine="fused"``) whose coordinate
-updates are hand-written CUDA kernels too (``csrc/fused_cggibbs.cu``).  It imports torch and never JAX; the JAX
-package stays the reference that the port's tests hold it against.  What
-is not ported yet raises NotImplementedError naming its ROADMAP item.
+updates are hand-written CUDA kernels too (``csrc/fused_cggibbs.cu``).
+The lockstep engine (``CGGibbs``: ``engine="xla"``, the "naive" linear
+predictor, the normal-normal oracle, any registered slice kernel) runs in
+plain PyTorch, as the JAX package's runs in plain XLA, and drives the
+update-against-naive comparison (``perf.py``) and the batched tuning
+sweep (``sweep.py``).  It imports torch and never JAX; the JAX package
+stays the reference that the port's tests hold it against.  What is not
+ported yet raises NotImplementedError naming its ROADMAP item.
 """
 
 __version__ = "0.1.0"
 
 from .api import mcmcglm
-from .convert import convert_fused_state, convert_state
+from .convert import convert_fused_state, convert_lockstep_state, convert_state
 from .datagen import generate_glm_data, generate_normal_data
 from .diagnostics import ess, split_rhat, summarize
+from .engine import CGGibbs, ChainState, EngineConfig
 from .formula import Design, build_design, design_from_arrays
 from .freerun import FreeRunCGGibbs, FreeRunState, QuantileState
 from .fused import FusedCGGibbs, FusedState
@@ -28,6 +34,8 @@ from .models import (
     IIDPrior,
     Laplace,
     Link,
+    MultivariateNormal,
+    MVNPrior,
     Normal,
     StackedPrior,
     StudentT,
@@ -38,10 +46,34 @@ from .models import (
     gaussian,
     get_link,
     inverse_gaussian,
+    log_density,
+    log_likelihood,
+    log_potential_from_betaj,
     make_beta_prior,
     negative_binomial,
     poisson,
     register_family,
     register_link,
+    update_linear_predictor,
+)
+from .ops import (
+    SLICE_KERNELS,
+    SliceKernel,
+    SliceRNG,
+    get_slice_kernel,
+    register_slice_kernel,
+    slice_doubling,
+    slice_elliptical,
+    slice_genelliptical,
+    slice_latent,
+    slice_quantile,
+    slice_stepping_out,
+    slice_stepping_out_batched,
+)
+from .perf import (
+    compare_eta_comptime,
+    compare_eta_comptime_across_nvars,
+    plot_eta_comptime,
 )
 from .results import MCMCGLM
+from .sweep import mcmcglm_across_tuningparams, plot_mcmcglm_across_tuningparams

@@ -2,14 +2,22 @@
 
 Counterpart of ``mcmcglm_tpu/api.py``: formula + data (or ``X=``/``y=``
 arrays) + family + beta_prior + slice tuning, returning an
-:class:`~.results.MCMCGLM`.  ``engine`` "auto" and "freerun" route all six
-slice kernels to the port's :class:`~.freerun.FreeRunCGGibbs` (the JAX
-package's ``engine="auto"`` choice): adaptive burn-in, then frozen-width
-sampling, or with ``thin > 1`` thinned collection (``run_thinned``).
-``sample_method="normal-normal"`` with ``engine="freerun"`` runs its exact
-conjugate pass.  ``engine="fused"`` routes to
-:class:`~.fused.FusedCGGibbs` under the JAX package's eligibility rule,
-with the fused kernels' n limit in place of the TPU's VMEM budget.
+:class:`~.results.MCMCGLM`.  The routes are the JAX package's:
+
+* ``engine`` "auto" and "freerun" send the six qslice kernels with the
+  "update" linear predictor to :class:`~.freerun.FreeRunCGGibbs`:
+  adaptive burn-in, then frozen-width sampling, or with ``thin > 1``
+  thinned collection (``run_thinned``); ``sample_method="normal-normal"``
+  with ``engine="freerun"`` runs its exact conjugate pass;
+* ``engine="fused"`` routes to :class:`~.fused.FusedCGGibbs` under the JAX
+  package's eligibility rule, with the fused kernels' n limit in place of
+  the TPU's VMEM budget;
+* everything else runs the lockstep :class:`~.engine.CGGibbs`:
+  ``engine="xla"``, ``linear_predictor_calc="naive"``, normal-normal under
+  "auto" (the validation oracle) and a registered kernel the free-running
+  engine does not serve (``qslice_fun``/``slice_fn``); there ``adapt_w``
+  adapts the stepping-out widths in burn-in, ``thin > 1`` collects thinned
+  draws with streaming moments, and ``chunk_size`` runs in chunks.
 
 ``device`` defaults to ``"cuda"`` and raises when CUDA is missing; the CPU
 runs only when the caller passes ``device="cpu"``.  ``spec_k`` (through
@@ -24,18 +32,33 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .engine import CGGibbs, EngineConfig
 from .formula import Design, build_design, design_from_arrays
 from .freerun import FreeRunCGGibbs
 from .fused import FusedCGGibbs
 from .models.families import check_family
 from .models.priors import IIDPrior, Normal, make_beta_prior
 from .ops.fused_cggibbs import MAX_FUSED_N
+from .ops.slice_kernels import get_slice_kernel
 from .results import MCMCGLM
 
 __all__ = ["mcmcglm"]
 
-_KERNELS = ("stepping_out", "quantile", "doubling", "latent", "elliptical",
-            "genelliptical")
+# the kernels the free-running engine serves
+_FREERUN_KERNELS = ("stepping_out", "quantile", "doubling", "latent",
+                    "elliptical", "genelliptical")
+
+
+def entry_device(device, what: str) -> torch.device:
+    """The device of an entry point whose ``device`` defaults to "cuda":
+    raises when CUDA is asked for and missing (no CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}(device='cuda') needs a CUDA device; pass device='cpu' "
+            "to run on the CPU"
+        )
+    return device
 
 
 def mcmcglm(
@@ -71,20 +94,15 @@ def mcmcglm(
 ) -> MCMCGLM:
     """Draw MCMC samples from a GLM posterior with the CGGibbs sampler.
 
-    The argument surface is the JAX package's ``mcmcglm`` plus ``device``.
-    Ported: every ``slice_fn`` with ``linear_predictor_calc="update"`` on
-    the free-running engine (``engine`` "auto" or "freerun"; doubling
-    drops ``spec_k``), ``thin > 1`` there (thinned collection, the kept
-    draws after the init row and ``burnin`` 0), the "normal-normal"
-    method with ``engine="freerun"`` (the exact conjugate pass), and the
-    fused engine (``engine="fused"``: stepping-out, an IID prior, n within
-    ``MAX_FUSED_N`` = 65,536 as in the reference, ``n_chains`` a multiple
-    of 8; ``n_evals`` is the evaluations of each sweep summed over chains,
-    broadcast to (n_chains, n_samples)).  The lockstep engine (``engine="xla"``, the
-    "naive" mode, "normal-normal" under "auto") and ``mesh`` raise
-    NotImplementedError naming their ROADMAP item.
-    ``adapt_w`` is accepted for signature parity: the free-running engine
-    always adapts its widths during burn-in.
+    The argument surface is the JAX package's ``mcmcglm`` plus ``device``;
+    the routes are the JAX package's (module docstring).  The fused engine
+    takes stepping-out, an IID prior, n within ``MAX_FUSED_N`` = 65,536
+    and ``n_chains`` a multiple of 8, and its ``n_evals`` is the
+    evaluations of each sweep summed over chains, broadcast to (n_chains,
+    n_samples).  With ``thin > 1`` the kept draws follow the init row and
+    ``burnin`` is 0.  ``adapt_w`` selects the lockstep engine's width
+    adaptation; the free-running engine always adapts in burn-in.
+    ``mesh`` raises NotImplementedError naming its ROADMAP item.
     """
     call = (
         f"mcmcglm(formula={formula!r}, family=..., n_samples={n_samples}, "
@@ -92,45 +110,34 @@ def mcmcglm(
     )
     if burnin >= n_samples:
         raise ValueError("Need more iterations than burnin")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "mcmcglm(device='cuda') needs a CUDA device; pass device='cpu' "
-            "to run on the CPU"
-        )
-    conjugate = sample_method == "normal-normal" and engine == "freerun"
+    device = entry_device(device, "mcmcglm")
     if sample_method not in ("slice_sampling", "normal-normal"):
         raise ValueError(f"unknown sample_method {sample_method!r}")
-    if sample_method == "normal-normal" and not conjugate:
-        raise NotImplementedError(
-            f"sample_method='normal-normal' with engine={engine!r} runs the "
-            "lockstep engine, which is not ported yet: ROADMAP queue 1, "
-            "item 9 (engine='freerun' runs the exact conjugate pass)"
-        )
     if engine not in ("auto", "freerun", "xla", "fused"):
         raise ValueError("engine must be 'auto', 'freerun', 'xla' or 'fused'")
-    if engine == "xla":
-        raise NotImplementedError(
-            "engine='xla' is not ported yet: ROADMAP queue 1, item 9 (the "
-            "lockstep engine)"
+    slicing = sample_method == "slice_sampling"
+    kernel = get_slice_kernel(qslice_fun if qslice_fun is not None
+                              else slice_fn) if slicing else None
+    freerun_eligible = (slicing and kernel.name in _FREERUN_KERNELS
+                        and linear_predictor_calc == "update")
+    # as in the JAX package, normal-normal under "fused" is the lockstep
+    # oracle
+    use_fused = engine == "fused" and slicing
+    if engine == "freerun" and slicing and not freerun_eligible:
+        raise ValueError(
+            "engine='freerun' requires a registered qslice-style kernel "
+            "(stepping_out, doubling, latent, elliptical, genelliptical or "
+            "quantile) + linear_predictor_calc='update'"
         )
-    use_fused = engine == "fused"
-    # the fused engine's eligibility (stepping-out, 'update') is checked
-    # below with the JAX package's error
-    if linear_predictor_calc != "update" and not use_fused:
-        raise NotImplementedError(
-            "linear_predictor_calc='naive' is not ported yet: ROADMAP queue "
-            "1, item 9 (the lockstep engine)"
-        )
+    conjugate = not slicing and engine == "freerun"
+    use_freerun = conjugate or (freerun_eligible and engine in ("auto",
+                                                                "freerun"))
     if mesh is not None:
         if use_fused:
             raise ValueError("engine='fused' is single-chip; mesh unsupported")
         raise NotImplementedError(
             "mesh is not ported yet: ROADMAP queue 1, item 10 (multi-GPU)"
         )
-    kernel = qslice_fun if qslice_fun is not None else slice_fn
-    if kernel not in _KERNELS:
-        raise ValueError(f"unknown slice kernel {kernel!r}")
 
     fam = check_family(family)
     if formula is not None:
@@ -154,7 +161,7 @@ def mcmcglm(
     if use_fused:
         eligible = (
             isinstance(prior, IIDPrior)
-            and kernel == "stepping_out"
+            and kernel is not None and kernel.name == "stepping_out"
             and linear_predictor_calc == "update"
             and design.X.shape[0] <= MAX_FUSED_N
             and n_chains % 8 == 0
@@ -176,12 +183,12 @@ def mcmcglm(
             )
         sampler = FusedCGGibbs(design.X, design.y, fam, prior, extra=extra,
                                tuning=tuning, device=device)
-    else:
+    elif use_freerun:
         engine_opts = dict(engine_opts or {})
         if conjugate:
             engine_opts["coord_sampler"] = "conjugate"
-        elif kernel != "stepping_out":
-            engine_opts.setdefault("slice_kernel", kernel)
+        elif kernel.name != "stepping_out":
+            engine_opts.setdefault("slice_kernel", kernel.name)
         if engine_opts.get("slice_kernel") == "doubling":
             # the classic one-evaluation pass only: the speculative
             # battery does not compose with the back-test
@@ -191,6 +198,16 @@ def mcmcglm(
             obs_weights=weights, dtype=dtype, offset=design.offset,
             device=device, **engine_opts,
         )
+    else:
+        config = EngineConfig(
+            sample_method=sample_method,
+            linear_predictor_calc=linear_predictor_calc,
+            slice_kernel=kernel if kernel is not None else "stepping_out",
+            dtype=dtype,
+        )
+        sampler = CGGibbs(design.X, design.y, fam, prior, extra=extra,
+                          config=config, tuning=tuning, obs_weights=weights,
+                          offset=design.offset, device=device)
 
     progress_cb = None
     if progress and chunk_size <= 0:
@@ -202,16 +219,24 @@ def mcmcglm(
             print(f"\rSampling from posterior: {done}/{total} ({pct:.0f}%)",
                   end="" if done < total else "\n", flush=True)
 
-    kernel_name = None if sample_method == "normal-normal" else kernel
+    kernel_name = None if kernel is None else kernel.name
     t0 = time.perf_counter()
+
+    def result(betas, n_evals, burnin_out, state=None):
+        return _result(design, fam, extra, tuning, betas, n_evals,
+                       burnin_out, sample_method, kernel_name, call,
+                       time.perf_counter() - t0, device, sampler, state)
+
     if use_fused:
         betas, nev, _ = sampler.sample(seed, n_samples, n_chains=n_chains,
                                        chunk_size=chunk_size,
                                        progress=progress_cb)
-        return _result(design, fam, extra, tuning, betas,
-                       np.broadcast_to(nev, (n_chains, n_samples)), burnin,
-                       sample_method, kernel, call, time.perf_counter() - t0,
-                       device)
+        return result(betas, np.broadcast_to(nev, (n_chains, n_samples)),
+                      burnin)
+    if not use_freerun:
+        return _lockstep(sampler, seed, n_samples, burnin, n_chains,
+                         chunk_size, thin, adapt_w and slicing, progress_cb,
+                         result)
     # adaptive burn-in (its draws are kept as the burn-in rows), then
     # frozen-width shrink-only sampling
     state = sampler.init(seed, n_chains)
@@ -235,10 +260,9 @@ def mcmcglm(
         nev_per = (state.nev.cpu().numpy() - nev_warm) / n_run
         if progress_cb is not None:
             progress_cb(n_samples, n_samples)
-        return _result(design, fam, extra, tuning, betas,
-                       np.broadcast_to(nev_per[:, None], (n_chains, n_run)),
-                       0, sample_method, kernel_name, call,
-                       time.perf_counter() - t0, device, sampler, state)
+        return result(betas,
+                      np.broadcast_to(nev_per[:, None], (n_chains, n_run)),
+                      0, state)
     step_size = chunk_size if chunk_size > 0 else n_keep
     nev_parts = []
     done = 0
@@ -254,9 +278,52 @@ def mcmcglm(
     cum = np.concatenate(nev_parts, axis=1)
     n_evals = np.diff(np.concatenate([nev_warm[:, None], cum], axis=1),
                       axis=1)
-    return _result(design, fam, extra, tuning, betas, n_evals, burnin,
-                   sample_method, kernel_name, call, time.perf_counter() - t0,
-                   device, sampler, state)
+    return result(betas, n_evals, burnin, state)
+
+
+def _lockstep(sampler, seed, n_samples, burnin, n_chains, chunk_size, thin,
+              adapt_w, progress_cb, result):
+    """The lockstep engine's run modes: thinned collection after a burn-in
+    (``thin > 1``), adaptive burn-in then frozen widths (``adapt_w``), or
+    one ``sample`` call."""
+    if thin > 1 and sampler.kernel is not None:
+        state = sampler.init(seed, n_chains)
+        init_beta = state.beta.cpu().numpy()[:, None, :]
+        burn = sampler.warmup if adapt_w else sampler.run
+        state, _, _ = burn(state, burnin)
+        if progress_cb is not None:
+            progress_cb(burnin, n_samples)
+        n_outer = (n_samples - burnin) // thin
+        state, _, draws, nev = sampler.run_thinned(state, n_outer, thin)
+        if progress_cb is not None:
+            progress_cb(n_samples, n_samples)
+        return result(np.concatenate([init_beta, draws.cpu().numpy()], 1),
+                      nev.cpu().numpy(), 0, state)
+    if adapt_w:
+        state = sampler.init(seed, n_chains)
+        parts = [state.beta.cpu().numpy()[:, None, :]]
+        state, warm, warm_nev = sampler.warmup(state, burnin)
+        parts.append(warm.cpu().numpy())
+        nevs = [warm_nev.cpu().numpy()]
+        if progress_cb is not None:
+            progress_cb(burnin, n_samples)
+        n_keep = n_samples - burnin
+        step_size = chunk_size if chunk_size > 0 else n_keep
+        done = 0
+        while done < n_keep:
+            step = min(step_size, n_keep - done)
+            state, sb, nb = sampler.run(state, step)
+            parts.append(sb.cpu().numpy())
+            nevs.append(nb.cpu().numpy())
+            done += step
+            if progress_cb is not None:
+                progress_cb(burnin + done, n_samples)
+        return result(np.concatenate(parts, 1), np.concatenate(nevs, 1),
+                      burnin, state)
+    betas, n_evals, state = sampler.sample(seed, n_samples, n_chains=n_chains,
+                                           chunk_size=chunk_size,
+                                           progress=progress_cb)
+    return result(betas, n_evals, burnin, state)
 
 
 def _result(design, fam, extra, tuning, betas, n_evals, burnin,

@@ -17,7 +17,8 @@ in (0 by default) and pass index 1, where a fresh ``init`` starts.
 :func:`convert_fused_state` does the same for
 the fused engine: it cuts the padded eta back to n and takes the JAX
 state's ``seed_ctr`` as the port's Philox seed (the TPU stream itself does
-not carry over).
+not carry over).  :func:`convert_lockstep_state` does it for the lockstep
+engine's ``ChainState`` (sweep 0, the Philox key of ``seed``).
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .engine import ChainState
 from .fused import FusedState
 from .ops.philox import key_tensor
 
-__all__ = ["convert_fused_state", "convert_state"]
+__all__ = ["convert_fused_state", "convert_lockstep_state", "convert_state"]
 
 _INT_FIELDS = ("j", "phase", "stepdir", "budL", "budR", "n_shrink", "nev")
 _BOOL_FIELDS = ("e_aL", "e_aR", "h_aL", "h_aR", "dsep")  # DoublingState
@@ -57,6 +59,28 @@ def convert_state(jax_state, eng, seed: int = 0):
     fields["key"] = key_tensor(seed, eng.device)
     fields["ctr"] = torch.ones((), dtype=torch.int64, device=eng.device)
     return eng.state_cls(**fields)
+
+
+def convert_lockstep_state(jax_state, eng, seed: int = 0,
+                           adapted: bool = False) -> ChainState:
+    """The port's ``ChainState`` for ``eng`` (a port ``CGGibbs``) from a
+    JAX ``ChainState`` of the same problem, its arrays read through numpy
+    (the per-chain threefry keys are dropped).  ``adapted`` says whether
+    its kernel-state slot holds warmup-adapted log widths."""
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=eng.dtype, device=eng.device)
+
+    return ChainState(
+        beta=tensor(jax_state.beta),
+        eta=tensor(jax_state.eta),
+        ld_cur=tensor(jax_state.ld_cur),
+        kernel_state=tensor(jax_state.kernel_state),
+        key=key_tensor(seed, eng.device),
+        sweep=0,
+        chain_tuning={k: tensor(v) for k, v in
+                      dict(jax_state.chain_tuning).items()},
+        adapted=bool(adapted),
+    )
 
 
 def convert_fused_state(jax_state, eng):

@@ -11,7 +11,22 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["generate_normal_data", "generate_glm_data"]
+__all__ = ["generate_normal_data", "generate_glm_data", "normal_arrays"]
+
+
+def normal_arrays(n_vars: int, n: int = 100, beta=None, sd: float = 1.0,
+                  seed=0):
+    """(model matrix (n, n_vars) with an intercept column, response (n,)):
+    the arrays of :func:`generate_normal_data`'s "Y ~ ." fit, without
+    pandas."""
+    rng = np.random.default_rng(seed)
+    if beta is None:
+        beta = np.ones(n_vars)
+    beta = np.asarray(beta, dtype=np.float64)
+    Xcov = rng.normal(size=(n, n_vars - 1))
+    model_matrix = np.column_stack([np.ones(n), Xcov])
+    y = rng.normal(model_matrix @ beta, sd)
+    return model_matrix, y
 
 
 def generate_normal_data(n_vars: int, n: int = 100, beta=None, sd: float = 1.0, seed=0):
@@ -20,18 +35,10 @@ def generate_normal_data(n_vars: int, n: int = 100, beta=None, sd: float = 1.0, 
     count is n_vars — matching R/measure_performance.R:46-56)."""
     import pandas as pd
 
-    rng = np.random.default_rng(seed)
-    if beta is None:
-        beta = np.ones(n_vars)
-    beta = np.asarray(beta, dtype=np.float64)
-    n_xvars = n_vars - 1
-    Xcov = rng.normal(size=(n, n_xvars))
-    model_matrix = np.column_stack([np.ones(n), Xcov])
-    lin_pred = model_matrix @ beta
-    y = rng.normal(lin_pred, sd)
+    model_matrix, y = normal_arrays(n_vars, n, beta, sd, seed)
     data = {"Y": y}
-    for i in range(n_xvars):
-        data[f"X{i + 1}"] = Xcov[:, i]
+    for i in range(n_vars - 1):
+        data[f"X{i + 1}"] = model_matrix[:, i + 1]
     return pd.DataFrame(data)
 
 

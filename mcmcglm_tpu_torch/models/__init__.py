@@ -10,6 +10,13 @@ from .families import (
     register_family,
 )
 from .links import Link, get_link, register_link
+from .potential import (
+    log_density,
+    log_likelihood,
+    log_potential_from_betaj,
+    make_coord_target,
+    update_linear_predictor,
+)
 from .priors import (
     BetaPrior,
     Distribution,
@@ -17,6 +24,8 @@ from .priors import (
     Gamma,
     IIDPrior,
     Laplace,
+    MultivariateNormal,
+    MVNPrior,
     Normal,
     StackedPrior,
     StudentT,

@@ -1,14 +1,17 @@
 """Prior distributions over GLM coefficient vectors, on torch tensors.
 
-Counterpart of ``mcmcglm_tpu/models/priors.py`` for the six univariate
-distributions, :class:`IIDPrior` and :class:`StackedPrior`.  The port's
-prior API is batched over chains (the JAX package's is per chain and
-vmapped): ``coord_log_prob(beta, j, b)`` takes ``beta`` (C, d), ``j`` (C,)
-and proposals ``b`` of shape (C,) or (C, K).  The support rules are the
-JAX package's: Gamma is -inf for x <= 0, Exponential for x < 0, Uniform
-outside [low, high].  The log densities make their constants on the
-device (``torch.full``, never a host-to-device copy), so a CUDA graph can
-capture them.
+Counterpart of ``mcmcglm_tpu/models/priors.py``: the six univariate
+distributions, :class:`MultivariateNormal`, :class:`IIDPrior`,
+:class:`StackedPrior` and :class:`MVNPrior`.  The port's prior API is
+batched over chains (the JAX package's is per chain and vmapped):
+``coord_log_prob(beta, j, b)`` takes ``beta`` (C, d), ``j`` (C,) and
+proposals ``b`` of shape (C,) or (C, K).  The support rules are the JAX
+package's: Gamma is -inf for x <= 0, Exponential for x < 0, Uniform
+outside [low, high].  The univariate log densities make their constants
+on the device (``torch.full``, never a host-to-device copy), so a CUDA
+graph can capture them; :class:`MVNPrior` copies its precision matrix to
+a device once, at its first use there (an engine's ``init``, before any
+capture).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -26,9 +30,11 @@ __all__ = [
     "StudentT",
     "Laplace",
     "Uniform",
+    "MultivariateNormal",
     "BetaPrior",
     "IIDPrior",
     "StackedPrior",
+    "MVNPrior",
     "make_beta_prior",
 ]
 
@@ -209,6 +215,55 @@ class Uniform(Distribution):
         return (self.high - self.low) ** 2 / 12.0
 
 
+def _f64(v) -> torch.Tensor:
+    if torch.is_tensor(v):
+        return v.detach().to(device="cpu", dtype=torch.float64)
+    return torch.tensor(np.asarray(v, dtype=np.float64))
+
+
+class MultivariateNormal:
+    """MVN(loc, cov), held on the host in float64.  ``log_prob`` and
+    ``sample`` compute in float64 on the device of their operands (the
+    Cholesky factor copied there once) and round once to the caller's
+    dtype."""
+
+    def __init__(self, loc, cov):
+        self.loc = _f64(loc)
+        self.cov = _f64(cov)
+        self.chol = torch.linalg.cholesky(self.cov)
+        self._dev = {}  # device -> (loc, chol) float64 copies
+
+    def _on(self, device):
+        device = torch.device(device)
+        if device not in self._dev:
+            self._dev[device] = (self.loc.to(device), self.chol.to(device))
+        return self._dev[device]
+
+    def log_prob(self, x):
+        """Log density of each row of ``x`` (..., d), in ``x``'s dtype."""
+        loc, chol = self._on(x.device)
+        diff = x.double() - loc
+        z = torch.linalg.solve_triangular(chol, diff.unsqueeze(-1),
+                                          upper=False).squeeze(-1)
+        logdet = torch.sum(torch.log(torch.diagonal(chol)))
+        d = loc.shape[-1]
+        lp = -0.5 * torch.sum(z * z, dim=-1) - logdet - 0.5 * d * _LOG_2PI
+        return lp.to(x.dtype)
+
+    def sample(self, generator, shape, *, dtype, device):
+        """Draws of shape ``shape + (d,)``: loc + eps chol^T in float64."""
+        loc, chol = self._on(device)
+        eps = torch.randn((*shape, loc.shape[-1]), generator=generator,
+                          dtype=torch.float64, device=device)
+        return (loc + eps @ chol.T).to(dtype)
+
+    def mean(self):
+        return self.loc
+
+    def covariance(self):
+        return self.cov
+
+
 class BetaPrior:
     """Prior over beta in R^d with the coordinate-delta operation the
     CGGibbs engines need, batched over chains."""
@@ -298,12 +353,66 @@ class StackedPrior(BetaPrior):
             dtype=torch.float64))
 
 
+class MVNPrior(BetaPrior):
+    """Multivariate-normal prior on beta.
+
+    ``coord_log_prob`` uses the identity: with P = cov^{-1} and r = beta -
+    mu, the quadratic form as a function of r_j = b - mu_j is
+        -(1/2) [P_jj r_j^2 + 2 r_j q_j] + const,
+    where q_j = (P r)_j - P_jj r_j uses the current beta: one O(d)
+    precision-row gather per chain and coordinate.  The precision is
+    inverted once in float64 and rounded to the caller's dtype at its first
+    use on a device.
+    """
+
+    def __init__(self, loc, cov):
+        self.mvn = MultivariateNormal(loc, cov)
+        self.loc = self.mvn.loc
+        self.cov = self.mvn.cov
+        self.d = int(self.loc.shape[-1])
+        self.precision = torch.linalg.inv(self.cov)
+        self._dev = {}  # (dtype, device) -> (precision, loc)
+
+    def _operands(self, like):
+        key = (like.dtype, like.device)
+        if key not in self._dev:
+            self._dev[key] = (self.precision.to(like.device, like.dtype),
+                              self.loc.to(like.device, like.dtype))
+        return self._dev[key]
+
+    def sample_beta(self, generator, n_chains, *, dtype, device):
+        return self.mvn.sample(generator, (n_chains,), dtype=dtype,
+                               device=device)
+
+    def log_prob_beta(self, beta):
+        return self.mvn.log_prob(beta)
+
+    def coord_log_prob(self, beta, j, b):
+        P, mu = self._operands(beta)
+        jl = j.long()
+        r = beta - mu  # (C, d)
+        p_row = P[jl]  # (C, d): each chain's precision row
+        p_jj = torch.gather(p_row, 1, jl[:, None])[:, 0]
+        r_j = torch.gather(r, 1, jl[:, None])[:, 0]
+        q_j = torch.sum(p_row * r, dim=-1) - p_jj * r_j
+        lane = (-1,) + (1,) * (b.dim() - 1)  # (C,) -> against b's shape
+        rj = b - mu[jl].reshape(lane)
+        return (-0.5 * p_jj.reshape(lane) * rj * rj
+                - rj * q_j.reshape(lane))
+
+    def mean_beta(self):
+        return self.loc
+
+    def cov_beta(self):
+        return self.cov
+
+
 def make_beta_prior(spec, d: int) -> BetaPrior:
     """Normalise a user prior spec into a BetaPrior: a univariate
     :class:`Distribution` (iid over the d coordinates), a list of d
-    univariate distributions (:class:`StackedPrior`) or a
-    :class:`BetaPrior` of dimension d.  The multivariate normal prior is
-    not ported yet (ROADMAP queue 1, item 2)."""
+    univariate distributions (:class:`StackedPrior`), a
+    :class:`MultivariateNormal` (:class:`MVNPrior`) or a :class:`BetaPrior`
+    of dimension d."""
     if isinstance(spec, BetaPrior):
         if spec.d != d:
             raise ValueError(
@@ -311,6 +420,14 @@ def make_beta_prior(spec, d: int) -> BetaPrior:
                 f"model parameters {d}"
             )
         return spec
+    if isinstance(spec, MultivariateNormal):
+        if spec.loc.shape[-1] != d:
+            raise ValueError(
+                "The multivariate normal `beta_prior` dimension needs to "
+                "match the number of parameters in the model (potentially "
+                "including intercept)"
+            )
+        return MVNPrior(spec.loc, spec.cov)
     if isinstance(spec, Distribution):
         return IIDPrior(spec, d)
     if isinstance(spec, (list, tuple)):

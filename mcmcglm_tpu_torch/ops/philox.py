@@ -15,6 +15,10 @@ as 1, 2, 3", SC 2011) under the key (seed_lo, seed_hi).
   trajectory depends neither on the chain blocking nor on whether a sweep
   runs as one launch or d.  ``csrc/fused_cggibbs.cu`` computes the same
   function.
+* The lockstep engine's slice kernels (:func:`counter_uniforms`, read
+  through ``ops/slice_kernels.SliceRNG``) use the same counter, (sweep, j,
+  c, t), for draw slot t of chain c at coordinate j of sweep s; a kernel's
+  loops read slot base + iteration.
 * The free-running passes (:func:`pass_uniforms`) use
 
       counter = (p_lo, p_hi, c, t)
@@ -36,8 +40,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["key_tensor", "pass_uniforms", "philox4x32", "philox_uniform",
-           "split_seed"]
+__all__ = ["counter_uniforms", "key_tensor", "pass_uniforms", "philox4x32",
+           "philox_uniform", "split_seed"]
 
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -96,6 +100,25 @@ def philox_uniform(seed: int, sweep: int, j: int, t, n_chains: int,
 def _to_uniform(w0):
     u = (w0 >> 9).to(torch.float32) * (1.0 / (1 << 23))
     return torch.clamp(u, min=1e-12)
+
+
+def counter_uniforms(key: torch.Tensor, sweep: int, j, n_chains: int,
+                     t) -> torch.Tensor:
+    """float32 uniforms of counter (sweep, j, c, t) under the (2,) int64
+    ``key``, for chains c = 0 .. n_chains - 1, on the key's device.  ``j``
+    is an int or a (J,) tensor of coordinates (a leading J axis), ``t`` an
+    int slot or a (W,) tensor of slots (a trailing W axis): the result is
+    (C,), (C, W), (J, C) or (J, C, W)."""
+    dev = key.device
+    jj = torch.as_tensor(j, dtype=torch.int64, device=dev)
+    tt = torch.as_tensor(t, dtype=torch.int64, device=dev)
+    c = torch.arange(n_chains, dtype=torch.int64, device=dev)
+    w0 = philox4x32((sweep, jj.reshape(-1, 1, 1), c.reshape(1, -1, 1),
+                     tt.reshape(1, 1, -1)), key)[0]
+    u = _to_uniform(w0)
+    if jj.dim() == 0:
+        u = u[0]
+    return u[..., 0] if tt.dim() == 0 else u
 
 
 def key_tensor(seed: int, device) -> torch.Tensor:

@@ -54,10 +54,11 @@ def init_moments(n_chains: int, d: int, dtype=torch.float32, *,
 
 
 def update_moments(m: ChainMoments, beta: torch.Tensor) -> ChainMoments:
-    """Welford update with one draw per chain: beta (C, d)."""
+    """Welford update with one draw per chain: beta (C, d); ``count`` a
+    scalar or per chain (C,)."""
     count = m.count + 1.0
     delta = beta - m.mean
-    mean = m.mean + delta / count
+    mean = m.mean + delta / (count[:, None] if count.dim() else count)
     m2 = m.m2 + delta * (beta - mean)
     return ChainMoments(count, mean, m2)
 

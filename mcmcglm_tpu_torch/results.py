@@ -44,9 +44,9 @@ class MCMCGLM:
     extra: Optional[Mapping[str, Any]] = None
     offset: Optional[np.ndarray] = None
     device: Optional[str] = None  # where the chains ran
-    # the free-running engine that drew (its ``loop_stats`` count the
-    # blocks, host flag reads and graph captures) and its last state (its
-    # tensors stay on ``device``)
+    # the engine that drew (the free-running and lockstep engines'
+    # ``loop_stats`` count their host flag reads) and its last state (its
+    # tensors stay on ``device``; None for the fused engine)
     sampler: Optional[Any] = None
     state: Optional[Any] = None
 

@@ -30,8 +30,10 @@ tree's kernels there), and measures in each, on the card:
   "sweep", then one by coordinate launches): ms per sweep on the host
   clock for each granularity.
 
-It prints one line per worker, then the card's name and power limit, and
-writes every number to ``--out`` as JSON.
+Each worker also records nvcc's version and, for a tree built afresh, the
+kernel functions that ptxas reports as spilling.  It prints one line per
+worker, then the card's name and power limit, and writes every number to
+``--out`` as JSON.
 """
 
 from __future__ import annotations
@@ -161,6 +163,21 @@ def fused_times(mt, fc):
             st.eta, st.beta, eng.Xt, eng.y, *args, **kw)))
 
 
+def build_report(build):
+    """nvcc's version and the kernel functions that ptxas reports as
+    spilling, from the build's log (none when the library was cached)."""
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
+    spills, fn = [], None
+    for line in build.BUILD_INFO.get("log", "").splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line and not line.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill"):
+            spills.append(f"{fn}: {line.strip()}")
+    return dict(nvcc=nvcc[-1] if nvcc else None, ptxas_spills=spills)
+
+
 def worker(root):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -178,6 +195,7 @@ def worker(root):
     t0 = time.perf_counter()
     _build.load_library()
     rec = dict(root=root, build_s=time.perf_counter() - t0)
+    rec.update(build_report(_build))
     rec.update(kernel_times(fb))
     rec.update(main_path(mt))
     rec.update(fused_times(mt, fc))

@@ -669,6 +669,101 @@ def test_run_thinned_device_ess_matches_host(cuda):
     np.testing.assert_allclose(mom.count.cpu().numpy(), 120.0)
 
 
+def _lockstep(X, y, device, calc="update", **kw):
+    return mt.CGGibbs(X, y, "binomial", mt.IIDPrior(mt.Normal(0, 1),
+                                                    X.shape[1]),
+                      tuning={"w": 0.5}, device=device,
+                      config=mt.EngineConfig(linear_predictor_calc=calc), **kw)
+
+
+@pytest.mark.parametrize("calc", ["update", "naive"])
+def test_lockstep_on_the_card_follows_the_cpu(cuda, calc):
+    """The lockstep engine on CUDA against the CPU from the same Philox
+    stream and the same initial beta: the proposals are the same numbers,
+    so the chains take the same decisions and agree to 1e-4 unless a g
+    value lies within the two devices' rounding (~1e-6) of its level;
+    at least 15 of 16 chains must agree over 3 sweeps."""
+    X, y, _ = mt.generate_glm_data("binomial", n=500, d=4, seed=0)
+    beta0 = np.random.default_rng(1).normal(size=(16, 4))
+    out = []
+    for dev in ("cpu", cuda):
+        eng = _lockstep(X, y, dev, calc)
+        st, draws, nev = eng.run(eng.init(3, 16, beta0=beta0), 3)
+        out.append((draws.cpu().numpy(), nev.cpu().numpy()))
+    (dc, nc), (dg, ng) = out
+    same = (nc == ng).all(1) & (np.abs(dc - dg) < 1e-4).all((1, 2))
+    assert same.sum() >= 15, same
+
+
+def test_lockstep_block_length_bitwise_on_the_card(cuda):
+    X, y, _ = mt.generate_glm_data("binomial", n=2000, d=4, seed=0)
+    got = []
+    for B in (1, 2, 5):
+        eng = _lockstep(X, y, cuda)
+        eng._block_iters = B
+        st, draws, nev = eng.run(eng.init(0, 32), 3)
+        got.append((draws, nev, st.eta, st.ld_cur))
+    for g in got[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(got[0], g))
+
+
+def test_mvn_prior_through_cuda3_and_the_torch_battery(cuda):
+    """An MVN prior on the free-running engine: "auto" resolves to cuda3
+    (the battery sees only the (C, K) prior terms) and samples the closed-
+    form posterior as the plain "torch" battery does."""
+    rng = np.random.default_rng(0)
+    n, d = 400, 4
+    X = np.column_stack([np.ones(n), rng.normal(size=(n, d - 1))])
+    y = rng.normal(X @ np.array([1.0, 1.5, -0.5, 0.3]), 1.0)
+    loc = np.array([0.5, 0.0, -0.5, 0.2])
+    cov = 0.5 * np.eye(d) + 0.3
+    P = np.linalg.inv(cov)
+    mean = np.linalg.solve(X.T @ X + P, X.T @ y + P @ loc)
+    sd = np.sqrt(np.diag(np.linalg.inv(X.T @ X + P)))
+    for impl in ("auto", "torch"):
+        eng = mt.FreeRunCGGibbs(X, y, "gaussian", mt.MVNPrior(loc, cov),
+                                extra={"sd": 1.0}, tuning={"w": 0.7},
+                                battery_impl=impl, device=cuda)
+        assert eng.battery_impl == ("cuda3" if impl == "auto" else "torch")
+        fb.reset_launch_counts()
+        st, _, _ = eng.warmup(eng.init(1, 64), 60)
+        st, draws, _ = eng.run(st, 200)
+        assert (fb.launch_counts["battery_gather_commit"] > 0) == (
+            impl == "auto")
+        post = draws.cpu().numpy()[:, 20:, :].reshape(-1, d)
+        assert np.abs(post.mean(0) - mean).max() < 0.03, impl
+        assert np.abs(post.std(0) / sd - 1.0).max() < 0.1, impl
+
+
+def test_new_entry_points_default_to_the_card(cuda, monkeypatch):
+    rng = np.random.default_rng(0)
+    n = 300
+    X = np.column_stack([np.ones(n), rng.normal(size=n)])
+    y = rng.normal(X @ [1.0, -0.5], 1.0)
+    fit = mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, engine="xla",
+                     n_samples=40, burnin=10, n_chains=8)
+    assert fit.device == "cuda" and isinstance(fit.sampler, mt.CGGibbs)
+    assert fit.state.beta.is_cuda
+    fits = mt.mcmcglm_across_tuningparams([0.5, 1.0], "w", X=X, y=y,
+                                          parallelise=True, n_samples=30,
+                                          burnin=10, n_chains=4)
+    assert fits[0].sampler.device.type == "cuda"
+    from mcmcglm_tpu_torch.perf import eta_comptime_rows_across_nvars
+
+    rows = eta_comptime_rows_across_nvars([3], n=200, n_samples=2,
+                                          n_chains=8)
+    assert [r["device"] for r in rows] == ["cuda", "cuda"]
+    assert all(r["time"] > 0 for r in rows)
+    with pytest.raises(ValueError, match="device='cpu'"):
+        eta_comptime_rows_across_nvars([3], n=200, n_samples=2,
+                                       parallelise=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eta_comptime_rows_across_nvars([3], n=200, n_samples=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.mcmcglm_across_tuningparams([0.5], "w", X=X, y=y)
+
+
 def test_failed_capture_raises(cuda):
     """A pass that reads the device on the host cannot be captured: the
     loop raises instead of falling back to the eager loop.  (Last in the

@@ -18,9 +18,13 @@ def test_import_loads_neither_jax_nor_triton():
     code = (
         "import sys, mcmcglm_tpu_torch, mcmcglm_tpu_torch.ops.freerun_passes, "
         "mcmcglm_tpu_torch.ops._build, mcmcglm_tpu_torch.convert, "
-        "mcmcglm_tpu_torch.ops.fused_cggibbs, mcmcglm_tpu_torch.fused; "
+        "mcmcglm_tpu_torch.ops.fused_cggibbs, mcmcglm_tpu_torch.fused, "
+        "mcmcglm_tpu_torch.engine, mcmcglm_tpu_torch.perf, "
+        "mcmcglm_tpu_torch.sweep; "
+        # the GPU machine has no pandas: the port imports it lazily only
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'triton', 'mcmcglm_tpu')]; "
+        "('jax', 'jaxlib', 'triton', 'mcmcglm_tpu', 'pandas', "
+        "'matplotlib')]; "
         "print(','.join(bad)); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -53,27 +57,34 @@ def test_engine_names_unported_options(kw, item):
     assert bool((st.nev > 0).all())
 
 
-# what stays unported names its ROADMAP item; what landed runs
-_LANDED = {"slice_fn": {"doubling", "elliptical"}, "thin": {2}}
+# the options that once raised naming ROADMAP item 9 run the lockstep engine
+_LOCKSTEP = {"engine": "xla", "sample_method": "normal-normal",
+             "linear_predictor_calc": "naive"}
 
 
 @pytest.mark.parametrize("kw", [
     dict(engine="xla"), dict(slice_fn="doubling"), dict(thin=2),
     dict(sample_method="normal-normal"), dict(slice_fn="elliptical"),
-    dict(linear_predictor_calc="naive"),
+    dict(linear_predictor_calc="naive"), dict(mesh="a mesh"),
 ])
 def test_api_names_unported_options(kw):
+    """Every option listed here once raised; all run now but ``mesh``,
+    which still names its ROADMAP item."""
     X, y = _problem()
     (name, value), = kw.items()
-    if value in _LANDED.get(name, ()):
-        fit = mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, sigma=1.0,
-                         n_samples=8, burnin=2, device="cpu", **kw)
-        assert np.isfinite(fit.beta).all()
+    if name == "mesh":
+        with pytest.raises(NotImplementedError, match="item 10"):
+            mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, device="cpu",
+                       **kw)
         return
-    item = "item 9" if name in ("engine", "sample_method",
-                                "linear_predictor_calc") else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=item):
-        mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, device="cpu", **kw)
+    lockstep = _LOCKSTEP.get(name) == value
+    # the lockstep kernels take exactly their own tuning, as in the JAX
+    # package; the free-running engine ignores what it does not read
+    tuning = {"w": 0.5} if lockstep else {"w": 0.5, "sigma": 1.0}
+    fit = mt.mcmcglm(X=X, y=y, family="gaussian", n_samples=8, burnin=2,
+                     device="cpu", **tuning, **kw)
+    assert np.isfinite(fit.beta).all() and fit.beta.shape[::2] == (1, 3)
+    assert isinstance(fit.sampler, mt.CGGibbs) == lockstep
 
 
 def test_engine_requires_an_explicit_device():

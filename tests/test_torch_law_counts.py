@@ -80,3 +80,38 @@ def test_adapted_quantile_matches_jax_eval_rate():
     s, _, _ = ej.run(s, 200)
     nev_j = (np.asarray(s.nev) - nev0).mean() / 200
     assert abs(nev_t / nev_j - 1.0) < 0.1, (nev_t, nev_j)
+
+
+def test_bench_quantile_eval_rate_matches_jax():
+    """The bench configuration's sampler at a small size: binomial/logit,
+    the quantile kernel with adapted pseudo-targets at pseudo_c=3,
+    spec_k=4.  Evaluations per coordinate after warmup agree with the JAX
+    engine's on the same problem (within 4 standard errors over chains),
+    and so do the posterior means."""
+    d, C = 6, 16
+    X, y, _ = mg.generate_glm_data("binomial", n=400, d=d, seed=5)
+    tuning = {"pseudo_scale": 2.0, "pseudo_adapt": True, "pseudo_c": 3.0}
+    rates, means = [], []
+    et = mt.FreeRunCGGibbs(X, y, "binomial", mt.IIDPrior(mt.Normal(0, 1), d),
+                           slice_kernel="quantile", tuning=tuning, spec_k=4,
+                           device="cpu")
+    st = et.init(0, C)
+    st, _, _ = et.warmup(st, 30)
+    nev0 = st.nev.numpy().copy()
+    st, draws, _ = et.run(st, 120)
+    rates.append((st.nev.numpy() - nev0) / (120 * d))
+    means.append(draws.numpy())
+    ej = JaxFreeRun(X, y, "binomial", mg.IIDPrior(mg.Normal(0, 1), d),
+                    slice_kernel="quantile", tuning=tuning, spec_k=4)
+    s = ej.init(jax.random.key(0), C)
+    s, _, _ = ej.warmup(s, 30)
+    nev0 = np.asarray(s.nev).copy()
+    s, draws, _ = ej.run(s, 120)
+    rates.append((np.asarray(s.nev) - nev0) / (120 * d))
+    means.append(np.asarray(draws))
+    (rt, rj) = rates
+    se = np.sqrt(rt.var(ddof=1) / C + rj.var(ddof=1) / C)
+    assert abs(rt.mean() - rj.mean()) < 4 * se, (rt.mean(), rj.mean(), se)
+    mt_, mj = (m.reshape(-1, d) for m in means)
+    se_m = np.sqrt(mt_.var(0) / mt.ess(means[0]) + mj.var(0) / mt.ess(means[1]))
+    assert (np.abs(mt_.mean(0) - mj.mean(0)) < 4 * se_m).all()

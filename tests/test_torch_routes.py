@@ -66,9 +66,15 @@ def test_mcmcglm_normal_normal_on_the_freerun_engine(data):
     assert (fit.n_evals == 3).all()  # one pass per coordinate
     np.testing.assert_allclose(fit.post_burnin().reshape(-1, 3).mean(0),
                                post_mean, atol=0.05)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mt.mcmcglm(X=X, y=y, family="gaussian",
-                   sample_method="normal-normal", device="cpu")
+    # under engine="auto" the normal-normal oracle is the lockstep engine's
+    # factored conjugate sampler, as in the JAX package
+    fit = mt.mcmcglm(X=X, y=y, family="gaussian",
+                     sample_method="normal-normal", n_samples=300, burnin=50,
+                     n_chains=4, device="cpu")
+    assert isinstance(fit.sampler, mt.CGGibbs) and fit.sampler.kernel is None
+    assert fit.slice_kernel is None and (fit.n_evals == 0).all()
+    np.testing.assert_allclose(fit.post_burnin().reshape(-1, 3).mean(0),
+                               post_mean, atol=0.05)
 
 
 def test_mcmcglm_list_prior(data):
