@@ -10,9 +10,12 @@ The lockstep engine (``CGGibbs``: ``engine="xla"``, the "naive" linear
 predictor, the normal-normal oracle, any registered slice kernel) runs in
 plain PyTorch, as the JAX package's runs in plain XLA, and drives the
 update-against-naive comparison (``perf.py``) and the batched tuning
-sweep (``sweep.py``).  It imports torch and never JAX; the JAX package
-stays the reference that the port's tests hold it against.  What is not
-ported yet raises NotImplementedError naming its ROADMAP item.
+sweep (``sweep.py``).  Both kernel sets serve all 21 built-in
+family/link pairs.  The result's ``predict``, ``waic``, ``loo`` and
+``trace_plot`` and the native host ESS are ported too.  It imports torch
+and never JAX; the JAX package stays the reference that the port's tests
+hold it against.  What is not ported yet raises NotImplementedError
+naming its ROADMAP item.
 """
 
 __version__ = "0.1.0"

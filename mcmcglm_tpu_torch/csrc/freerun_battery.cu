@@ -13,9 +13,11 @@
 //   lsum[c,k] = sum_i  m_i != 0 ? ld(eta[c,i] + x[c,i] * delta[c,k], y_i) * m_i : 0
 //
 // with ld the relative log density of one built-in family/link pair (a
-// compile-time FAM id from families.cuh; the Python side keeps the table of
-// ids).  With the gather, the X^T rows are float32 or bfloat16 (the
-// x_storage="bf16" row stream of build_battery3): a bf16 row is upcast in
+// compile-time FAM id from families.cuh, and for the composed route of
+// the pairs without a path of their own, the runtime family and link ids
+// in comp; the Python side keeps the table of ids).  With the gather, the
+// X^T rows are float32 or bfloat16 (the x_storage="bf16" row stream of
+// build_battery3): a bf16 row is upcast in
 // registers, exactly, and every product is then float32.  The mask is
 // applied by selection, not multiplication, as the TPU kernels do, so a
 // non-finite density at a zero-weight observation cannot leak into a sum.
@@ -45,8 +47,10 @@
 // its part of the slice, eta and the X row, into registers as 16-byte
 // vectors (float4, or 4 bf16 in 8 bytes) before any arithmetic, so all of
 // a warp's loads are in flight together: a tile of 3 units of 4
-// observations per thread, 1,536 per CTA.  The kernel is held to 64
-// registers (8 CTAs per SM) without spills.  K is a template parameter (1,
+// observations per thread, 1,536 per CTA (the composed route: 1 unit, 512
+// per CTA, 8 CTAs and 3 chunks a chain at n=10,000).  The kernel is held
+// to 64 registers (8 CTAs per SM) without spills on the six pairs' own
+// paths.  K is a template parameter (1,
 // and 4, the main path's spec_k; one runtime-K instantiation walks the
 // proposals in blocks of 4 over the same registers), so the accumulators
 // stay in registers without dead copies of the density.  The reduction is
@@ -87,8 +91,14 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_CTAS = 8;  // resident CTAs per SM: caps registers at 64
 constexpr int G = 4;  // observations per unit: one 16-byte float4 of eta
-constexpr int V = 3;  // units per thread: the register tile
-constexpr int CHUNK = THREADS * V * G;  // observations per CTA per chunk
+// units per thread, the register tile: 3 for the six pairs with a path of
+// their own; 1 for the composed route, whose kernels hold the unrolled
+// body of each of its fifteen pairs, so that they stay a third as long and
+// the tile leaves the registers to the longer densities
+template <int FAM>
+__host__ __device__ constexpr int tile_units() {
+  return FAM == FAM_COMPOSED ? 1 : 3;
+}
 constexpr int MAX_CLUSTER = 8;          // the portable cluster size
 constexpr int KB_RUNTIME = 4;  // proposals per block on the runtime-K path
 
@@ -133,7 +143,7 @@ __device__ __forceinline__ int unit_len(int i, int end) {
   return max(0, min(G, end - i));
 }
 
-template <typename XT>
+template <int V, typename XT>
 __device__ __forceinline__ void load_tile(const float* er, const XT* xr,
                                           int base, int end, bool vec,
                                           float (&e)[V][G], float (&x)[V][G]) {
@@ -148,15 +158,16 @@ __device__ __forceinline__ void load_tile(const float* er, const XT* xr,
   }
 }
 
-// acc[q] += the masked log densities of the tile at proposal kb * KB + q
-template <int FAM, int KB>
+// acc[q] += the masked log densities ld of the tile at proposal kb * KB
+// + q
+template <int KB, int V, typename LD>
 __device__ __forceinline__ void accumulate(const float (&e)[V][G],
                                            const float (&x)[V][G],
                                            const float* __restrict__ y,
                                            const float* __restrict__ m,
                                            int base, int end, bool vec,
                                            const float (&dl)[KB], int nk,
-                                           float param, float (&acc)[KB]) {
+                                           LD ld, float (&acc)[KB]) {
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int i = unit_start(base, v);
@@ -171,14 +182,15 @@ __device__ __forceinline__ void accumulate(const float (&e)[V][G],
       for (int q = 0; q < KB; ++q) {
         if (q >= nk) continue;
         const float ev = __fadd_rn(e[v][g], __fmul_rn(x[v][g], dl[q]));
-        const float ld = ld_rel<FAM>(ev, yv[g], param);
+        const float lv = ld(ev, yv[g]);
         acc[q] = __fadd_rn(acc[q],
-                           mv[g] != 0.f ? __fmul_rn(ld, mv[g]) : 0.f);
+                           mv[g] != 0.f ? __fmul_rn(lv, mv[g]) : 0.f);
       }
     }
   }
 }
 
+template <int V>
 __device__ __forceinline__ void store_tile(float* out, const float (&e)[V][G],
                                            const float (&x)[V][G], float ds,
                                            int base, int end, bool vec) {
@@ -225,8 +237,11 @@ battery_kernel(const float* __restrict__ eta,     // (C, n)
                const float* __restrict__ m,       // (n,) weights / mask
                float* __restrict__ lsum,          // (C, K)
                float* __restrict__ eta_new,       // (C, n) with COMMIT
-               int n, int K, int S, float param, bool vec) {
+               int n, int K, int S, float param, bool vec,
+               Composed comp) {
   constexpr int KB = KT == 0 ? KB_RUNTIME : KT;
+  constexpr int V = tile_units<FAM>();
+  constexpr int CHUNK = THREADS * V * G;  // observations per CTA per chunk
   __shared__ float s_part[WARPS][KMAX];
   __shared__ float s_cta[KMAX];
   __shared__ float s_dstar;
@@ -271,7 +286,14 @@ battery_kernel(const float* __restrict__ eta,     // (C, n)
     for (int ch = 0; ch < nchunks; ++ch) {
       const int base = s0 + ch * CHUNK;
       if (nchunks > 1 || kb == 0) load_tile(er, xr, base, s1, vec, e, x);
-      accumulate<FAM, KB>(e, x, y, m, base, s1, vec, dl, nk, param, acc);
+      if constexpr (FAM == FAM_COMPOSED) {
+        with_pair(comp, param, [&](auto ld) {
+          accumulate<KB>(e, x, y, m, base, s1, vec, dl, nk, ld, acc);
+        });
+      } else {
+        accumulate<KB>(e, x, y, m, base, s1, vec, dl, nk,
+                       LdRel<FAM>{param}, acc);
+      }
     }
 #pragma unroll
     for (int q = 0; q < KB; ++q) {
@@ -347,14 +369,15 @@ battery_kernel(const float* __restrict__ eta,     // (C, n)
 }
 
 // The cluster size and slice length for a row of n observations: the
-// fewest CTAs whose slices fit one register tile each (fewer, fuller CTAs
-// leave fewer waves), at most MAX_CLUSTER, slices a multiple of G long so
-// that every slice starts on a 16-byte boundary of an aligned row.
+// fewest CTAs whose slices fit one register tile (chunk observations)
+// each (fewer, fuller CTAs leave fewer waves), at most MAX_CLUSTER, slices
+// a multiple of G long so that every slice starts on a 16-byte boundary of
+// an aligned row.
 struct Plan {
   int cl, s;
 };
-inline Plan plan(int n) {
-  const int cl = min(MAX_CLUSTER, (n + CHUNK - 1) / CHUNK);
+inline Plan plan(int n, int chunk) {
+  const int cl = min(MAX_CLUSTER, (n + chunk - 1) / chunk);
   const int s = ((n + cl - 1) / cl + G - 1) / G * G;
   return {cl, s};
 }
@@ -369,19 +392,23 @@ cudaError_t launch_kernel(const cudaLaunchConfig_t& cfg, const float* eta,
                           const float* deltas, const float* fprior,
                           const float* scal, const float* y, const float* m,
                           float* lsum, float* eta_new, int n, int K, int S,
-                          float param, bool vec) {
+                          float param, bool vec, Composed comp) {
   return cudaLaunchKernelEx(&cfg, battery_kernel<FAM, GATHER, COMMIT, KT, XT>,
                             eta, xsrc, jidx, d, deltas, fprior, scal, y, m,
-                            lsum, eta_new, n, K, S, param, vec);
+                            lsum, eta_new, n, K, S, param, vec, comp);
 }
 
 template <bool GATHER, bool COMMIT, typename XT = float>
 int launch(int fam, const float* eta, const XT* xsrc, const int32_t* jidx,
            int d, const float* deltas, const float* fprior, const float* scal,
            const float* y, const float* m, float* lsum, float* eta_new,
-           int C, int n, int K, float param, void* stream) {
-  if (C < 1 || n < 1 || K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(n);
+           int C, int n, int K, float param, Composed comp, void* stream) {
+  if (C < 1 || n < 1 || K < 1 || K > KMAX ||
+      (fam == FAM_COMPOSED && !composed_pair_ok(comp)))
+    return (int)cudaErrorInvalidValue;
+  const int units = fam == FAM_COMPOSED ? tile_units<FAM_COMPOSED>()
+                                        : tile_units<FAM_BINOMIAL_LOGIT>();
+  const Plan p = plan(n, THREADS * units * G);
   const bool vec = n % G == 0 && aligned(eta, 16) && aligned(y, 16) &&
                    aligned(m, 16) && aligned(xsrc, G * sizeof(XT)) &&
                    (!COMMIT || aligned(eta_new, 16));
@@ -400,7 +427,7 @@ int launch(int fam, const float* eta, const XT* xsrc, const int32_t* jidx,
   cudaError_t err = cudaErrorInvalidValue;
 #define MCMCGLM_BATTERY_ARGS                                                  \
   cfg, eta, xsrc, jidx, d, deltas, fprior, scal, y, m, lsum, eta_new, n, K,  \
-      p.s, param, vec
+      p.s, param, vec, comp
 #define MCMCGLM_BATTERY_CASE(F)                                               \
   case F:                                                                     \
     err = K == 4   ? launch_kernel<F, GATHER, COMMIT, 4, XT>(                 \
@@ -432,10 +459,11 @@ int launch(int fam, const float* eta, const XT* xsrc, const int32_t* jidx,
 extern "C" int battery_sums(const float* eta, const float* xg,
                             const float* deltas, const float* y,
                             const float* m, float* lsum, int C, int n, int K,
-                            int fam, float param, void* stream) {
+                            int fam, float param, int rfam, int rlink,
+                            void* stream) {
   return launch<false, false>(fam, eta, xg, nullptr, 0, deltas, nullptr,
                               nullptr, y, m, lsum, nullptr, C, n, K, param,
-                              stream);
+                              mcmcglm::Composed{rfam, rlink}, stream);
 }
 
 // replaces mcmcglm_tpu/ops/freerun_batteries.py::build_battery2
@@ -444,9 +472,10 @@ extern "C" int battery_commit(const float* eta, const float* xg,
                               const float* scal, const float* y,
                               const float* m, float* lsum, float* eta_new,
                               int C, int n, int K, int fam, float param,
-                              void* stream) {
+                              int rfam, int rlink, void* stream) {
   return launch<false, true>(fam, eta, xg, nullptr, 0, deltas, fprior, scal,
-                             y, m, lsum, eta_new, C, n, K, param, stream);
+                             y, m, lsum, eta_new, C, n, K, param,
+                             mcmcglm::Composed{rfam, rlink}, stream);
 }
 
 // replaces mcmcglm_tpu/ops/freerun_batteries.py::build_battery3
@@ -456,9 +485,10 @@ extern "C" int battery_gather_commit(const int32_t* j, const float* Xt, int d,
                                      const float* y, const float* m,
                                      float* lsum, float* eta_new, int C,
                                      int n, int K, int fam, float param,
-                                     void* stream) {
+                                     int rfam, int rlink, void* stream) {
   return launch<true, true>(fam, eta, Xt, j, d, deltas, fprior, scal, y, m,
-                            lsum, eta_new, C, n, K, param, stream);
+                            lsum, eta_new, C, n, K, param,
+                            mcmcglm::Composed{rfam, rlink}, stream);
 }
 
 // build_battery3 with x_storage="bf16": the same kernel on bfloat16 X^T rows
@@ -470,9 +500,11 @@ extern "C" int battery_gather_commit_bf16(const int32_t* j,
                                           const float* scal, const float* y,
                                           const float* m, float* lsum,
                                           float* eta_new, int C, int n, int K,
-                                          int fam, float param,
-                                          void* stream) {
+                                          int fam, float param, int rfam,
+                                          int rlink, void* stream) {
   return launch<true, true, __nv_bfloat16>(fam, eta, Xt, j, d, deltas,
                                            fprior, scal, y, m, lsum, eta_new,
-                                           C, n, K, param, stream);
+                                           C, n, K, param,
+                                           mcmcglm::Composed{rfam, rlink},
+                                           stream);
 }

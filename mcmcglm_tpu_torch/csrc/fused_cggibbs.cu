@@ -13,7 +13,9 @@
 //
 // with ld0_i = ld(eta_i, y_i) cached at the start of the coordinate, the
 // difference taken per observation inside the sum, ld the relative family
-// log density of families.cuh and lp the relative log density of the IID
+// log density of families.cuh (a pair's own path, or the composed route
+// with the runtime family and link in Params::comp) and lp the relative
+// log density of the IID
 // prior (both drop terms that do not depend on their argument, which only
 // differences see).  The steps, as the TPU kernels take them:
 //
@@ -112,6 +114,7 @@ struct Params {
   int max_stepouts, max_shrink;
   float fparam;        // the family's scalar extra argument
   float p0, p1, p2;    // the prior's parameters
+  Composed comp;       // the composed route's runtime family and link
 };
 
 // relative log prior density (b-independent terms dropped); the support
@@ -203,6 +206,50 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The composed route's copies of the two per-observation loops of
+// chain_coord below (the six pairs' paths keep them inline): stage the
+// working copy and the density cache ld0 = ld(eta, y), and this thread's
+// part of g's sum at the moved predictor, with the density functor ld.
+template <typename LD>
+__device__ __forceinline__ void stage_rows(const float* eta, float* work,
+                                           float* ld0,
+                                           const float* __restrict__ y,
+                                           int n, bool vec, LD ld) {
+  const int t0 = threadIdx.x;
+  if (vec) {
+    for (int q = t0; q < (n >> 2); q += THREADS) {
+      const float4 e = reinterpret_cast<const float4*>(eta)[q];
+      const float4 v = __ldg(reinterpret_cast<const float4*>(y) + q);
+      if (work != eta) reinterpret_cast<float4*>(work)[q] = e;
+      float* l = ld0 + 4 * q;
+      l[0] = ld(e.x, v.x);
+      l[1] = ld(e.y, v.y);
+      l[2] = ld(e.z, v.z);
+      l[3] = ld(e.w, v.w);
+    }
+  } else {
+    for (int i = t0; i < n; i += THREADS) {
+      const float e = eta[i];
+      if (work != eta) work[i] = e;
+      ld0[i] = ld(e, __ldg(y + i));
+    }
+  }
+}
+
+template <typename LD>
+__device__ __forceinline__ float partial_sum(const float* work,
+                                             const float* ld0,
+                                             const float* __restrict__ x,
+                                             const float* __restrict__ y,
+                                             int n, float db, LD ld) {
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const float e = __fadd_rn(work[i], __fmul_rn(__ldg(x + i), db));
+    acc = __fadd_rn(acc, __fsub_rn(ld(e, __ldg(y + i)), ld0[i]));
+  }
+  return acc;
+}
+
 // One chain's slice update of coordinate j, run by the whole CTA.  eta is
 // the chain's global row; work and ld0 are its working copy and density
 // cache, in shared memory or (work == eta) in global memory; x is the X
@@ -220,7 +267,11 @@ __device__ float chain_coord(float* eta, float* work, float* ld0,
   const bool vec = (n & 3) == 0 && aligned16(eta) && aligned16(work) &&
                    aligned16(ld0) && aligned16(x) && aligned16(y);
   __syncthreads();
-  if (vec) {
+  if constexpr (FAM == FAM_COMPOSED) {
+    with_pair(p.comp, p.fparam, [&](auto ld) {
+      stage_rows(eta, work, ld0, y, n, vec, ld);
+    });
+  } else if (vec) {
     for (int q = t0; q < (n >> 2); q += THREADS) {
       const float4 e = reinterpret_cast<const float4*>(eta)[q];
       const float4 v = __ldg(reinterpret_cast<const float4*>(y) + q);
@@ -245,10 +296,16 @@ __device__ float chain_coord(float* eta, float* work, float* ld0,
   auto g = [&](float b) {
     const float db = __fsub_rn(b, b0);
     float acc = 0.f;
-    for (int i = t0; i < n; i += THREADS) {
-      const float e = __fadd_rn(work[i], __fmul_rn(__ldg(x + i), db));
-      acc = __fadd_rn(acc,
-                      __fsub_rn(ld_rel<FAM>(e, __ldg(y + i), p.fparam), ld0[i]));
+    if constexpr (FAM == FAM_COMPOSED) {
+      with_pair(p.comp, p.fparam, [&](auto ld) {
+        acc = partial_sum(work, ld0, x, y, n, db, ld);
+      });
+    } else {
+      for (int i = t0; i < n; i += THREADS) {
+        const float e = __fadd_rn(work[i], __fmul_rn(__ldg(x + i), db));
+        acc = __fadd_rn(acc,
+                        __fsub_rn(ld_rel<FAM>(e, __ldg(y + i), p.fparam), ld0[i]));
+      }
     }
     return __fadd_rn(red.sum(acc), __fsub_rn(prior_rel<PRIOR>(b, p), lp0));
   };
@@ -406,14 +463,16 @@ int launch_kernel(int C, const Params& p, const float* ld0g, int32_t* cnt,
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int C, const Params& p) {
+bool bad_shape(int C, int fam, const Params& p) {
   return C < 1 || p.n < 1 || p.d < 1 || p.bc < 1 || p.bc > MAX_BC ||
-         C % p.bc != 0 || p.max_stepouts < 0 || p.max_shrink < 0;
+         C % p.bc != 0 || p.max_stepouts < 0 || p.max_shrink < 0 ||
+         (fam == FAM_COMPOSED && !composed_pair_ok(p.comp));
 }
 
 Params make_params(int n, int d, int bc, uint32_t key0, uint32_t key1,
                    uint32_t sweep, float w, int max_stepouts, int max_shrink,
-                   float fparam, float p0, float p1, float p2) {
+                   float fparam, int rfam, int rlink, float p0, float p1,
+                   float p2) {
   Params p;
   p.n = n;
   p.d = d;
@@ -428,6 +487,7 @@ Params make_params(int n, int d, int bc, uint32_t key0, uint32_t key1,
   p.p0 = p0;
   p.p1 = p1;
   p.p2 = p2;
+  p.comp = Composed{rfam, rlink};
   return p;
 }
 
@@ -462,11 +522,12 @@ extern "C" int fused_coord_update(float* eta, float* ld0, const float* bj_in,
                                   int n, int bc, int j, uint32_t key0,
                                   uint32_t key1, uint32_t sweep, float w,
                                   int max_stepouts, int max_shrink, int fam,
-                                  float fparam, int prior, float p0, float p1,
-                                  float p2, void* stream) {
+                                  float fparam, int rfam, int rlink,
+                                  int prior, float p0, float p1, float p2,
+                                  void* stream) {
   const Params p = make_params(n, 1, bc, key0, key1, sweep, w, max_stepouts,
-                               max_shrink, fparam, p0, p1, p2);
-  if (bad_shape(C, p) || j < 0) return (int)cudaErrorInvalidValue;
+                               max_shrink, fparam, rfam, rlink, p0, p1, p2);
+  if (bad_shape(C, fam, p) || j < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MCMCGLM_COORD_CASE(F, P)                                           \
   case MCMCGLM_PAIR_KEY(F, P):                                             \
@@ -488,11 +549,11 @@ extern "C" int fused_sweep(float* eta, float* ld0, float* beta, int32_t* cnt,
                            int C, int n, int d, int bc, uint32_t key0,
                            uint32_t key1, uint32_t sweep, float w,
                            int max_stepouts, int max_shrink, int fam,
-                           float fparam, int prior, float p0, float p1,
-                           float p2, void* stream) {
+                           float fparam, int rfam, int rlink, int prior,
+                           float p0, float p1, float p2, void* stream) {
   const Params p = make_params(n, d, bc, key0, key1, sweep, w, max_stepouts,
-                               max_shrink, fparam, p0, p1, p2);
-  if (bad_shape(C, p)) return (int)cudaErrorInvalidValue;
+                               max_shrink, fparam, rfam, rlink, p0, p1, p2);
+  if (bad_shape(C, fam, p)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MCMCGLM_SWEEP_CASE(F, P)                                            \
   case MCMCGLM_PAIR_KEY(F, P):                                              \

@@ -14,8 +14,8 @@ thousands of chains) and follow the standard formulations:
 
 Host-side numpy implementations operating on sample arrays of shape
 (chains, draws) or (chains, draws, params): a copy of
-``mcmcglm_tpu/diagnostics.py`` without its native C++ ESS kernel, which
-is not ported yet (ROADMAP queue 1, item 6).
+``mcmcglm_tpu/diagnostics.py``, whose ESS dispatches large inputs to the
+port's own copy of the native C++ kernel (``native/hostutils.cpp``).
 """
 
 from __future__ import annotations
@@ -64,18 +64,33 @@ def _split_chains(x):
     return np.concatenate([x[:, :half], x[:, K - half :]], axis=0)
 
 
-def ess(samples, rank_normalized: bool = False) -> np.ndarray:
+_NATIVE_THRESHOLD = 2_000_000  # elements; below this numpy wins on startup cost
+
+
+def ess(samples, use_native: bool = True,
+        rank_normalized: bool = False) -> np.ndarray:
     """Bulk effective sample size.
 
     samples: (chains, draws) or (chains, draws, params).
     Returns a scalar or (params,) array.  ``rank_normalized=True`` computes
     the Vehtari et al. (2021) bulk-ESS on normal scores.
+
+    From ``_NATIVE_THRESHOLD`` elements on this dispatches to the native
+    C++ kernel (``mcmcglm_tpu_torch/native/hostutils.cpp``, OpenMP over
+    parameters with early lag termination, built with g++ at first use);
+    without a compiler it falls back to the numpy FFT version.
     """
     samples = np.asarray(samples, dtype=np.float64)
     if samples.ndim not in (2, 3):
         raise ValueError("samples must be (chains, draws[, params])")
     if rank_normalized:
         samples = rank_normalize(samples)
+    if use_native and samples.size >= _NATIVE_THRESHOLD:
+        from . import native
+
+        out = native.ess_bulk(samples)
+        if out is not None:
+            return out if samples.ndim == 3 else float(out[0])
     if samples.ndim == 2:
         return _ess_1d(samples)
     return np.array([_ess_1d(samples[:, :, p]) for p in range(samples.shape[2])])

@@ -155,6 +155,19 @@ def standard_gamma(alpha: float, u: torch.Tensor) -> torch.Tensor:
     return torch.where(ok.any(-1), g, math.nan)
 
 
+def _roundoff_eta(family, y) -> float:
+    """The predictor at which eval_cache="auto" reads the log densities:
+    0, as the JAX package does, unless the mean there lies outside the
+    family's ``mean_domain``; then g(mean y), where that is finite."""
+    lo, hi = family.mean_domain
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    mu0 = float(family.link.linkinv(zero))
+    if lo < mu0 < hi:
+        return 0.0
+    eta = float(family.link.link(y.mean()))
+    return eta if math.isfinite(eta) else 0.0
+
+
 class FreeRunCGGibbs:
     """Lockstep-free CGGibbs sampler (all six univariate slice kernels and
     the exact conjugate coordinate draws).
@@ -342,20 +355,33 @@ class FreeRunCGGibbs:
         self.adapt_c = float(adapt_c if adapt_c is not None else 40.0)
         # eval_cache "auto": the scalar cache when its f32 roundoff
         # estimate (from the log density at eta = 0) is far below the
-        # Exp(1) slice level, else the exact per-observation cache
+        # Exp(1) slice level, else the exact per-observation cache (which
+        # the battery kernels do not serve: configure_battery warns on the
+        # card).  Where the mean at eta = 0 is not inside the family's
+        # mean_domain (inverse and 1/mu^2 links, and identity or sqrt
+        # links of a positive mean) the density there is infinite or a clamp's artefact and says
+        # nothing of the roundoff, so the estimate reads it at the
+        # intercept-only predictor g(mean y) instead (the JAX package keeps
+        # eta = 0, and so the per-observation cache, for these pairs:
+        # ROADMAP, deliberate divergences)
         if eval_cache not in ("auto", "scalar", "per_obs"):
             raise ValueError(
                 f"eval_cache must be 'auto', 'scalar' or 'per_obs', got {eval_cache!r}"
             )
         if eval_cache == "auto":
-            ld_at0 = self._ld_eta(
-                torch.zeros(self.n, dtype=dtype, device=dev), self.y,
-                self.extra,
-            ).cpu().numpy()
+            eta0 = torch.zeros(self.n, dtype=dtype, device=dev)
+            ld_at0 = self._ld_eta(eta0 + _roundoff_eta(self.family, self.y),
+                                  self.y, self.extra)
+            ld_at0 = ld_at0.cpu().numpy()
             eps = float(torch.finfo(dtype).eps)
             err = (eps * float(np.sqrt(np.log2(max(self.n, 4))))
                    * float(np.sum(np.abs(ld_at0))))
             eval_cache = "scalar" if err < 0.01 else "per_obs"
+            self.eval_cache_reason = (
+                f"auto: roundoff estimate {err:.3g} "
+                + ("< 0.01" if eval_cache == "scalar" else ">= 0.01"))
+        else:
+            self.eval_cache_reason = "requested"
         self.eval_cache = eval_cache
         if spec_k is None:
             spec_k = 4 if self.device.type == "cuda" else 1

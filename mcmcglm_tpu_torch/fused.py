@@ -12,8 +12,10 @@ Scope as in the JAX package: an :class:`~.models.priors.IIDPrior`, the
 stepping-out kernel, and n within the JAX package's limit
 (``MAX_FUSED_N`` = 65,536).  The engine resolves ``impl`` to
 ``"cuda"`` on a CUDA device for a family/link pair in ``KERNEL_FAMILIES``
-and a prior in ``KERNEL_PRIORS``, and to ``"torch"`` (the plain PyTorch
-versions) otherwise; ``impl_reason`` says why.
+(every built-in pair) and a prior in ``KERNEL_PRIORS``, and to
+``"torch"`` (the plain PyTorch versions) otherwise; ``impl_reason`` says
+why.  On a CUDA device a user-registered family or link, which no hand
+kernel can compile, warns.
 
 Random numbers are the Philox stream of ``ops/philox.py``, keyed by the
 state's ``seed`` and counted by its ``sweep``: a chain's draws depend on
@@ -24,6 +26,7 @@ for draw when a test hands both the same uniforms).
 
 from __future__ import annotations
 
+import warnings
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -32,7 +35,7 @@ import torch
 from .freerun import _resolve_device, _tensor
 from .models.families import check_family
 from .models.priors import IIDPrior
-from .ops.freerun_batteries import kernel_family
+from .ops.freerun_batteries import _outside_table, kernel_family
 from .ops.fused_cggibbs import (
     MAX_FUSED_N,
     fused_coord_update,
@@ -115,8 +118,14 @@ class FusedCGGibbs:
         why."""
         blockers = []
         if kernel_family(self.family, self.extra) is None:
-            blockers.append(f"{self.family.name}/{self.family.link.name} is "
-                            "not in KERNEL_FAMILIES")
+            blockers.append(_outside_table(self.family))
+            if self.device.type == "cuda":
+                warnings.warn(
+                    f"FusedCGGibbs: {_outside_table(self.family)}; running "
+                    "the plain torch fused updates",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
         if kernel_prior(self.prior.dist) is None:
             blockers.append(f"{type(self.prior.dist).__name__} is not in "
                             "KERNEL_PRIORS")

@@ -68,6 +68,9 @@ class Family:
         default_factory=dict
     )
     log_density_rel: Optional[Callable] = None
+    # the open interval the mean lives in (the whole line for a family
+    # that does not say)
+    mean_domain: tuple = (-math.inf, math.inf)
 
     @property
     def linkinv(self):
@@ -203,6 +206,7 @@ def binomial(link="logit") -> Family:
             "logit": _bernoulli_logit_eta,
             "cloglog": _bernoulli_cloglog_eta,
         },
+        mean_domain=(0.0, 1.0),
     )
 
 
@@ -235,6 +239,7 @@ def poisson(link="log") -> Family:
         _eta_paths={"log": _poisson_log_eta},
         _eta_rel_paths={"log": _poisson_log_eta_rel},
         log_density_rel=_poisson_rel,
+        mean_domain=(0.0, math.inf),
     )
 
 
@@ -290,6 +295,7 @@ def negative_binomial(link="log") -> Family:
         _eta_paths={"log": _negbin_log_eta},
         _eta_rel_paths={"log": _negbin_log_eta_rel},
         log_density_rel=_negbin_rel,
+        mean_domain=(0.0, math.inf),
     )
 
 
@@ -337,6 +343,7 @@ def gamma(link="inverse") -> Family:
         _eta_paths={"log": _gamma_log_eta},
         _eta_rel_paths={"log": _gamma_log_eta_rel},
         log_density_rel=_gamma_rel,
+        mean_domain=(0.0, math.inf),
     )
 
 
@@ -371,6 +378,7 @@ def inverse_gaussian(link="1/mu^2") -> Family:
         link=get_link(link),
         log_density=_invgauss_logpdf,
         log_density_rel=_invgauss_rel,
+        mean_domain=(0.0, math.inf),
     )
 
 

@@ -32,7 +32,8 @@ _LINK_FLAGS = [*_ARCH, "-shared"]
 
 _LIB = None
 # filled by the first load: library path, build seconds (0.0 when the
-# library was already built), nvcc's output (ptxas register/spill report)
+# library was already built), nvcc's output (ptxas register/spill report;
+# kept as nvcc.log beside the library, so a cached build reports it too)
 BUILD_INFO: dict = {}
 
 
@@ -95,22 +96,30 @@ def _build(out: Path, sources) -> None:
     BUILD_INFO["log"] = log
     for obj in objs:
         obj.unlink()
+    # the log goes first, so that a library on disk always has its log
+    log_tmp = out.parent / f"nvcc.{tag}.log"
+    log_tmp.write_text(log)
+    os.replace(log_tmp, out.with_name("nvcc.log"))
     os.replace(tmp, out)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    lib.battery_sums.argtypes = [P, P, P, P, P, P, I, I, I, I, F, P]
-    lib.battery_commit.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
-    gather = [P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
+    # every entry point takes (fam, param, rfam, rlink): the template family
+    # id, its scalar, and the composed route's runtime family and link
+    fam = [I, F, I, I]
+    lib.battery_sums.argtypes = [P, P, P, P, P, P, I, I, I, *fam, P]
+    lib.battery_commit.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, *fam,
+                                   P]
+    gather = [P, P, I, P, P, P, P, P, P, P, P, I, I, I, *fam, P]
     lib.battery_gather_commit.argtypes = gather
     lib.battery_gather_commit_bf16.argtypes = gather
     lib.fused_coord_update.argtypes = [
-        P, P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, I, F, I, F, F,
+        P, P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, *fam, I, F, F,
         F, P,
     ]
     lib.fused_sweep.argtypes = [
-        P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, I, F, I, F, F, F,
+        P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, *fam, I, F, F, F,
         P,
     ]
     for fn in (lib.battery_sums, lib.battery_commit,
@@ -130,7 +139,9 @@ def load_library() -> ctypes.CDLL:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     out = _BUILD_ROOT / h.hexdigest()[:16] / "libmcmcglm_kernels.so"
     if out.exists():
-        BUILD_INFO.update(seconds=0.0, log="(cached build)")
+        saved = out.with_name("nvcc.log")
+        BUILD_INFO.update(seconds=0.0, log=saved.read_text()
+                          if saved.exists() else "(cached build)")
     else:
         _build(out, sources)
     BUILD_INFO["path"] = str(out)

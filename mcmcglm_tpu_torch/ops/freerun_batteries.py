@@ -18,18 +18,25 @@ Three parts:
   tensor a wrapper runs the plain version; on a CUDA tensor it launches its
   kernel or raises.  Each counts its launches in :data:`launch_counts`.
 * :func:`configure_battery`, which validates ``battery_impl`` and resolves
-  ``"auto"`` against a static table of the family/link pairs the kernel
-  implements (:data:`KERNEL_FAMILIES`).
+  ``"auto"`` against the static table of the 21 built-in family/link pairs
+  the kernels implement (:data:`KERNEL_FAMILIES`).  Only a family or link
+  that the user registered falls outside it: no hand kernel can compile a
+  Python density, so ``"auto"`` then runs the plain battery and warns.
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = [
+    "COMPOSED_PAIRS",
     "KERNEL_FAMILIES",
+    "KernelFamily",
     "battery_commit",
     "battery_gather_commit",
     "battery_sums",
@@ -45,17 +52,59 @@ __all__ = [
 
 _log = logging.getLogger(__name__)
 
-# (family name, link name) -> (kernel family id, name of the scalar extra
-# argument the kernel takes, its default).  Ids match the FAM_* enum in
-# csrc/freerun_battery.cu.
-KERNEL_FAMILIES = {
-    ("gaussian", "identity"): (0, "sd", 1.0),
-    ("binomial", "logit"): (1, None, 0.0),
-    ("poisson", "log"): (2, None, 0.0),
-    ("negative.binomial", "log"): (3, "size", 1.0),
-    ("Gamma", "log"): (4, "shape", 1.0),
-    ("binomial", "cloglog"): (5, None, 0.0),
+# The pairs with a density path of their own in csrc/families.cuh ->
+# their template family id (the FAM_* enum there).
+OWN_PATHS = {
+    ("gaussian", "identity"): 0,
+    ("binomial", "logit"): 1,
+    ("poisson", "log"): 2,
+    ("negative.binomial", "log"): 3,
+    ("Gamma", "log"): 4,
+    ("binomial", "cloglog"): 5,
 }
+FAM_COMPOSED = 6  # the template id of the composed route
+# runtime ids of the composed route (RF_* and LINK_* in csrc/families.cuh)
+COMPOSED_FAMILIES = {"gaussian": 0, "binomial": 1, "poisson": 2,
+                     "negative.binomial": 3, "Gamma": 4,
+                     "inverse.gaussian": 5}
+COMPOSED_LINKS = {"identity": 0, "log": 1, "logit": 2, "probit": 3,
+                  "cloglog": 4, "inverse": 5, "1/mu^2": 6, "sqrt": 7,
+                  "cauchit": 8}
+# the links R's family objects accept for each built-in family
+BUILTIN_LINKS = {
+    "gaussian": ("identity", "log", "inverse"),
+    "binomial": ("logit", "probit", "cauchit", "log", "cloglog"),
+    "poisson": ("log", "identity", "sqrt"),
+    "negative.binomial": ("log", "sqrt", "identity"),
+    "Gamma": ("inverse", "identity", "log"),
+    "inverse.gaussian": ("1/mu^2", "inverse", "identity", "log"),
+}
+# (family name, link name) -> (template family id, runtime family id,
+# runtime link id) for all 21 built-in pairs: a pair's own path where it
+# has one, else the composed route
+KERNEL_FAMILIES = {
+    (fam, link): (OWN_PATHS.get((fam, link), FAM_COMPOSED),
+                  COMPOSED_FAMILIES[fam], COMPOSED_LINKS[link])
+    for fam, links in BUILTIN_LINKS.items() for link in links
+}
+# the fifteen pairs of the composed route, in the table's order
+COMPOSED_PAIRS = tuple(p for p, v in KERNEL_FAMILIES.items()
+                       if v[0] == FAM_COMPOSED)
+# family -> (name of the scalar extra argument the kernels take, default)
+_FAMILY_PARAM = {"gaussian": ("sd", 1.0), "negative.binomial": ("size", 1.0),
+                 "Gamma": ("shape", 1.0)}
+
+
+class KernelFamily(NamedTuple):
+    """What the kernels take for a family/link pair: the template id, the
+    scalar parameter, and the composed route's runtime family and link
+    ids."""
+
+    fid: int
+    param: float
+    rfam: int
+    rlink: int
+
 
 IMPLS = ("auto", "torch", "cuda", "cuda2", "cuda3")
 KERNEL_IMPLS = ("cuda", "cuda2", "cuda3")
@@ -74,15 +123,32 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def _family_param(name, extra) -> float:
+    """The family's scalar extra argument as the kernels take it:
+    inverse-gaussian's dispersion phi, or 1 / shape (in float32, as the
+    plain version computes it) when only ``shape`` is given."""
+    if name == "inverse.gaussian":
+        if "shape" in extra and "dispersion" not in extra:
+            return float(np.float32(1.0) / np.float32(float(extra["shape"])))
+        return float(extra.get("dispersion", 1.0))
+    pname, default = _FAMILY_PARAM.get(name, (None, 0.0))
+    return float(extra[pname]) if pname in extra else default
+
+
 def kernel_family(family, extra):
-    """(kernel family id, scalar parameter) for a family/link pair in
+    """:class:`KernelFamily` for a family/link pair in
     :data:`KERNEL_FAMILIES`, else None."""
     entry = KERNEL_FAMILIES.get((family.name, family.link.name))
     if entry is None:
         return None
-    fid, pname, default = entry
-    param = float(extra[pname]) if pname in extra else default
-    return fid, param
+    fid, rfam, rlink = entry
+    return KernelFamily(fid, _family_param(family.name, extra), rfam, rlink)
+
+
+def _outside_table(family) -> str:
+    return (f"{family.name}/{family.link.name} is not in KERNEL_FAMILIES (a "
+            "user-registered family or link: no hand kernel can compile its "
+            "density)")
 
 
 def masked_sum(t: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -145,7 +211,8 @@ def _check(name, t, shape, dtype, device):
 
 
 def _prepare(eta, deltas, y, m, family, extra):
-    """Common CUDA-side checks; returns (lib, C, n, K, fid, param)."""
+    """Common CUDA-side checks; returns (lib, C, n, K, kf), kf the
+    :class:`KernelFamily`."""
     if eta.device.type != "cuda":
         raise ValueError(
             f"battery kernels run on CUDA tensors (got {eta.device})"
@@ -158,9 +225,7 @@ def _prepare(eta, deltas, y, m, family, extra):
         raise ValueError(f"the battery kernels take 1 <= K <= 32, got {K}")
     kf = kernel_family(family, extra)
     if kf is None:
-        raise ValueError(
-            f"{family.name}/{family.link.name} is not in KERNEL_FAMILIES"
-        )
+        raise ValueError(_outside_table(family))
     f32 = torch.float32
     _check("eta", eta, (C, n), f32, eta.device)
     _check("deltas", deltas, (C, K), f32, eta.device)
@@ -168,7 +233,7 @@ def _prepare(eta, deltas, y, m, family, extra):
     _check("m", m, (n,), f32, eta.device)
     from ._build import load_library
 
-    return load_library(), C, n, K, kf[0], kf[1]
+    return load_library(), C, n, K, kf
 
 
 def _raise_on(err, name):
@@ -181,14 +246,14 @@ def battery_sums(eta, xg, deltas, y, m, family, extra):
     if eta.device.type == "cpu":
         return plain_battery(eta, xg, deltas, y, _ld_fn(family, extra),
                              lambda t: masked_sum(t, m))
-    lib, C, n, K, fid, param = _prepare(eta, deltas, y, m, family, extra)
+    lib, C, n, K, kf = _prepare(eta, deltas, y, m, family, extra)
     _check("xg", xg, (C, n), torch.float32, eta.device)
     lsum = torch.empty((C, K), dtype=torch.float32, device=eta.device)
     with torch.cuda.device(eta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.battery_sums(
             eta.data_ptr(), xg.data_ptr(), deltas.data_ptr(), y.data_ptr(),
-            m.data_ptr(), lsum.data_ptr(), C, n, K, fid, param, stream,
+            m.data_ptr(), lsum.data_ptr(), C, n, K, *kf, stream,
         )
     _raise_on(err, "battery_sums")
     launch_counts["battery_sums"] += 1
@@ -202,7 +267,7 @@ def battery_commit(eta, xg, deltas, fprior, scal, y, m, family, extra):
     if eta.device.type == "cpu":
         return plain_battery(eta, xg, deltas, y, _ld_fn(family, extra),
                              lambda t: masked_sum(t, m), fprior, scal)
-    lib, C, n, K, fid, param = _prepare(eta, deltas, y, m, family, extra)
+    lib, C, n, K, kf = _prepare(eta, deltas, y, m, family, extra)
     _check("xg", xg, (C, n), torch.float32, eta.device)
     _check("fprior", fprior, (C, K), torch.float32, eta.device)
     _check("scal", scal, (C, 4), torch.float32, eta.device)
@@ -213,7 +278,7 @@ def battery_commit(eta, xg, deltas, fprior, scal, y, m, family, extra):
         err = lib.battery_commit(
             eta.data_ptr(), xg.data_ptr(), deltas.data_ptr(),
             fprior.data_ptr(), scal.data_ptr(), y.data_ptr(), m.data_ptr(),
-            lsum.data_ptr(), eta_new.data_ptr(), C, n, K, fid, param, stream,
+            lsum.data_ptr(), eta_new.data_ptr(), C, n, K, *kf, stream,
         )
     _raise_on(err, "battery_commit")
     launch_counts["battery_commit"] += 1
@@ -231,7 +296,7 @@ def battery_gather_commit(j, Xt, eta, deltas, fprior, scal, y, m, family,
         return plain_battery(eta, Xt[j.long()].to(eta.dtype), deltas, y,
                              _ld_fn(family, extra),
                              lambda t: masked_sum(t, m), fprior, scal)
-    lib, C, n, K, fid, param = _prepare(eta, deltas, y, m, family, extra)
+    lib, C, n, K, kf = _prepare(eta, deltas, y, m, family, extra)
     if Xt.dim() != 2:
         raise ValueError("Xt must be (d, n)")
     d = Xt.shape[0]
@@ -250,7 +315,7 @@ def battery_gather_commit(j, Xt, eta, deltas, fprior, scal, y, m, family,
             j.data_ptr(), Xt.data_ptr(), d, eta.data_ptr(),
             deltas.data_ptr(), fprior.data_ptr(), scal.data_ptr(),
             y.data_ptr(), m.data_ptr(), lsum.data_ptr(), eta_new.data_ptr(),
-            C, n, K, fid, param, stream,
+            C, n, K, *kf, stream,
         )
     _raise_on(err, name)
     launch_counts[name] += 1
@@ -267,9 +332,14 @@ def configure_battery(eng, battery_impl, *, user_reduce_fn):
     ``"cuda"``, ``"cuda2"`` and ``"cuda3"`` run the kernels that replace
     ``"pallas"``, ``"pallas2"`` and ``"pallas3"``.  ``"auto"`` picks
     ``"cuda3"`` on a CUDA device for a family/link pair in
-    :data:`KERNEL_FAMILIES` (and the constraints the kernels share), and
-    ``"torch"`` otherwise, logging which it picked and why.  An explicit
-    kernel request that cannot be served raises.
+    :data:`KERNEL_FAMILIES` (every built-in pair) and the constraints the
+    kernels share, and ``"torch"`` otherwise, logging which it picked and
+    why; on a CUDA device a pair outside the table (a user-registered
+    family or link) also warns, as the JAX package warns when its auto
+    selection cannot lower a Pallas battery, and so does an
+    ``eval_cache="auto"`` that resolved to ``"per_obs"`` (its roundoff
+    estimate reached 0.01, as for Gamma data of shape 2 at n=10,000).  An explicit kernel request
+    that cannot be served raises.
 
     Sets ``eng.battery_impl``, ``eng.battery_reason`` and
     ``eng._kernel_family``.
@@ -291,10 +361,7 @@ def configure_battery(eng, battery_impl, *, user_reduce_fn):
     if eng.dtype != torch.float32:
         blockers.append(f"dtype {eng.dtype} (kernels take float32)")
     if kf is None:
-        blockers.append(
-            f"{eng.family.name}/{eng.family.link.name} is not in "
-            "KERNEL_FAMILIES"
-        )
+        blockers.append(_outside_table(eng.family))
     if eng.device.type != "cuda":
         blockers.append(f"device {eng.device} is not CUDA")
     if battery_impl in KERNEL_IMPLS and blockers:
@@ -303,6 +370,23 @@ def configure_battery(eng, battery_impl, *, user_reduce_fn):
             + "; ".join(blockers)
         )
     if battery_impl == "auto":
+        if kf is None and eng.device.type == "cuda":
+            warnings.warn(
+                f"auto battery selection: {_outside_table(eng.family)}; "
+                "running the plain torch battery",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        elif (eng.eval_cache == "per_obs" and eng.device.type == "cuda"
+              and eng.eval_cache_reason.startswith("auto")):
+            warnings.warn(
+                f"auto battery selection: eval_cache='auto' chose 'per_obs' "
+                f"({eng.eval_cache_reason}), which the kernels do not "
+                "serve; running the plain torch battery (eval_cache='scalar' "
+                "runs the kernels)",
+                RuntimeWarning,
+                stacklevel=3,
+            )
         battery_impl = "torch" if blockers else "cuda3"
         eng.battery_reason = (
             "auto: " + ("; ".join(blockers) if blockers else

@@ -48,7 +48,12 @@ from ..models.priors import (
     StudentT,
     Uniform,
 )
-from .freerun_batteries import _check, _raise_on, kernel_family
+from .freerun_batteries import (
+    _check,
+    _outside_table,
+    _raise_on,
+    kernel_family,
+)
 from .philox import philox_uniform, split_seed
 
 __all__ = [
@@ -226,7 +231,8 @@ def _plain_fns(family, extra, dist):
 
 
 def _prepare(eta, y, family, extra, dist, block_chains):
-    """Common CUDA-side checks; returns (lib, C, n, fid, fparam, pid, pp)."""
+    """Common CUDA-side checks; returns (lib, C, n, kf, pid, pp), kf the
+    :class:`~.freerun_batteries.KernelFamily`."""
     if eta.device.type != "cuda":
         raise ValueError(
             f"the fused kernels run on CUDA tensors (got {eta.device})"
@@ -245,9 +251,7 @@ def _prepare(eta, y, family, extra, dist, block_chains):
         )
     kf = kernel_family(family, extra)
     if kf is None:
-        raise ValueError(
-            f"{family.name}/{family.link.name} is not in KERNEL_FAMILIES"
-        )
+        raise ValueError(_outside_table(family))
     kp = kernel_prior(dist)
     if kp is None:
         raise ValueError(f"{type(dist).__name__} is not in KERNEL_PRIORS")
@@ -255,7 +259,7 @@ def _prepare(eta, y, family, extra, dist, block_chains):
     _check("y", y, (n,), torch.float32, eta.device)
     from ._build import load_library
 
-    return load_library(), C, n, kf[0], kf[1], kp[0], kp[1]
+    return load_library(), C, n, kf, kp[0], kp[1]
 
 
 def _scratch(eta, block_chains, d):
@@ -286,8 +290,8 @@ def fused_coord_update(eta, beta_j, x_j, y, family, extra, dist, *, j: int,
             eta, beta_j, x_j, y, ld_fn=ld_fn, lp_fn=lp_fn, j=j, seed=seed,
             sweep=sweep, w=w, block_chains=block_chains,
             max_stepouts=max_stepouts, max_shrink=max_shrink)[:3]
-    lib, C, n, fid, fparam, pid, pp = _prepare(eta, y, family, extra, dist,
-                                               block_chains)
+    lib, C, n, kf, pid, pp = _prepare(eta, y, family, extra, dist,
+                                      block_chains)
     _check("beta_j", beta_j, (C,), torch.float32, eta.device)
     _check("x_j", x_j, (n,), torch.float32, eta.device)
     eta_out = eta.clone()
@@ -300,8 +304,7 @@ def fused_coord_update(eta, beta_j, x_j, y, family, extra, dist, *, j: int,
             eta_out.data_ptr(), _ptr(ld0), beta_j.data_ptr(),
             bj_out.data_ptr(), cnt.data_ptr(), nev.data_ptr(),
             x_j.data_ptr(), y.data_ptr(), C, n, block_chains, j, key0, key1,
-            sweep, w, max_stepouts, max_shrink, fid, fparam, pid, *pp,
-            stream,
+            sweep, w, max_stepouts, max_shrink, *kf, pid, *pp, stream,
         )
     _raise_on(err, "fused_coord_update")
     launch_counts["fused_coord_update"] += 1
@@ -319,8 +322,8 @@ def fused_sweep(eta, beta, Xt, y, family, extra, dist, *, seed: int,
             eta, beta, Xt, y, ld_fn=ld_fn, lp_fn=lp_fn, seed=seed,
             sweep=sweep, w=w, block_chains=block_chains,
             max_stepouts=max_stepouts, max_shrink=max_shrink)[:3]
-    lib, C, n, fid, fparam, pid, pp = _prepare(eta, y, family, extra, dist,
-                                               block_chains)
+    lib, C, n, kf, pid, pp = _prepare(eta, y, family, extra, dist,
+                                      block_chains)
     if beta.dim() != 2 or Xt.dim() != 2:
         raise ValueError("beta must be (C, d) and Xt (d, n)")
     d = beta.shape[1]
@@ -336,7 +339,7 @@ def fused_sweep(eta, beta, Xt, y, family, extra, dist, *, seed: int,
             eta_out.data_ptr(), _ptr(ld0), beta_out.data_ptr(),
             cnt.data_ptr(), nev.data_ptr(), Xt.data_ptr(), y.data_ptr(), C,
             n, d, block_chains, key0, key1, sweep, w, max_stepouts,
-            max_shrink, fid, fparam, pid, *pp, stream,
+            max_shrink, *kf, pid, *pp, stream,
         )
     _raise_on(err, "fused_sweep")
     launch_counts["fused_sweep"] += 1

@@ -30,10 +30,14 @@ tree's kernels there), and measures in each, on the card:
   "sweep", then one by coordinate launches): ms per sweep on the host
   clock for each granularity.
 
-Each worker also records nvcc's version and, for a tree built afresh, the
-kernel functions that ptxas reports as spilling.  It prints one line per
-worker, then the card's name and power limit, and writes every number to
-``--out`` as JSON.
+Each worker also records nvcc's version and, from the nvcc log kept
+beside the tree's library, the kernel functions that ptxas reports as
+spilling and every kernel instantiation's registers and spill bytes
+(``chip_smoke.ptxas_table``).
+It prints one line per worker, then the instantiations of the six
+family/link pairs with a density path of their own (template ids 0-5)
+whose registers or spills differ between the trees, then the card's name
+and power limit, and writes every number to ``--out`` as JSON.
 """
 
 from __future__ import annotations
@@ -164,8 +168,8 @@ def fused_times(mt, fc):
 
 
 def build_report(build):
-    """nvcc's version and the kernel functions that ptxas reports as
-    spilling, from the build's log (none when the library was cached)."""
+    """nvcc's version, the kernel functions that ptxas reports as spilling
+    and the per-instantiation ptxas table, from the build's log."""
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
     spills, fn = [], None
@@ -175,7 +179,9 @@ def build_report(build):
         elif "spill stores" in line and not line.strip().startswith(
                 "0 bytes stack frame, 0 bytes spill"):
             spills.append(f"{fn}: {line.strip()}")
-    return dict(nvcc=nvcc[-1] if nvcc else None, ptxas_spills=spills)
+    return dict(nvcc=nvcc[-1] if nvcc else None, ptxas_spills=spills,
+                ptxas=load_smoke().ptxas_table(
+                    build.BUILD_INFO.get("log", "")))
 
 
 def worker(root):
@@ -222,6 +228,14 @@ def compare():
         rec["tree"] = label
         runs.append(rec)
         print(json.dumps(rec), flush=True)
+    built = {r["tree"]: r["ptxas"] for r in runs if r["ptxas"]}
+    if len(built) == 2:
+        own = [k for k in built["parent"]
+               if int(k.split("<")[1].split(",")[0]) < 6]
+        differ = {k: (built["parent"][k], built["change"].get(k))
+                  for k in own if built["parent"][k] != built["change"].get(k)}
+        print(json.dumps(dict(own_pair_instantiations=len(own),
+                              ptxas_differ=differ)), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

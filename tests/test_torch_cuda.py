@@ -10,6 +10,7 @@ machine does not have; this file imports neither JAX nor the JAX package).
 ``python3 chip_smoke.py`` runs the same checks at the main path's shapes.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -18,6 +19,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import mcmcglm_tpu_torch as mt  # noqa: E402
+from mcmcglm_tpu_torch.datagen import (  # noqa: E402
+    domain_data,
+    eta_sign,
+    example_extra,
+)
 from mcmcglm_tpu_torch.ops import freerun_batteries as fb  # noqa: E402
 from mcmcglm_tpu_torch.ops import fused_cggibbs as fc  # noqa: E402
 
@@ -32,14 +38,26 @@ def cuda():
     return torch.device("cuda")
 
 
-FAMILY_EXTRA = {
-    ("gaussian", "identity"): {"sd": 1.3},
-    ("binomial", "logit"): {},
-    ("poisson", "log"): {},
-    ("negative.binomial", "log"): {"size": 2.5},
-    ("Gamma", "log"): {"shape": 2.0},
-    ("binomial", "cloglog"): {},
-}
+# the six pairs with a density path of their own, and the fifteen of the
+# composed route: (family, link) -> extra
+FAMILY_EXTRA = {p: example_extra(p) for p in fb.OWN_PATHS}
+COMPOSED_EXTRA = {p: example_extra(p) for p in fb.COMPOSED_PAIRS}
+ALL_EXTRA = {**FAMILY_EXTRA, **COMPOSED_EXTRA}
+
+# a family the user registers (for this module's tests only): no kernel
+# can serve it
+USER_FAMILY = "user_gaussian"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _user_family():
+    from mcmcglm_tpu_torch.models.families import FAMILIES
+
+    mt.register_family(
+        USER_FAMILY,
+        lambda: dataclasses.replace(mt.gaussian(), name=USER_FAMILY))
+    yield
+    del FAMILIES[USER_FAMILY]
 
 
 def _operands(fam, extra, C, n, K, device, seed=0, d=16):
@@ -56,7 +74,7 @@ def _operands(fam, extra, C, n, K, device, seed=0, d=16):
         y = (rand(n) < 0.4).to(f32)
     elif fam.name == "gaussian":
         y = randn(n)
-    elif fam.name == "Gamma":
+    elif fam.name in ("Gamma", "inverse.gaussian"):
         y = rand(n) * 3 + 0.05
     else:
         y = torch.floor(rand(n) * 5)
@@ -68,6 +86,20 @@ def _operands(fam, extra, C, n, K, device, seed=0, d=16):
     xg = Xt[j.long()].contiguous()
     deltas = 0.3 * randn(C, K)
     m = torch.where(rand(n) < 0.9, 1.0 + rand(n), torch.zeros(n, device=device))
+    sign = eta_sign(fam)
+    if (fam.name, fam.link.name) in COMPOSED_EXTRA:
+        # every proposal in the pair's domain: |x delta| < 0.4 about
+        # eta in [1, 1.5] (or its negative)
+        if sign:
+            eta = sign * (1.0 + 0.5 * rand(C, n))
+            deltas = 0.2 * deltas
+        # padded slots as the JAX package pads: weight 0, y = 1, eta and
+        # x 0, where linkinv(0) is inf under inverse and 1/mu^2
+        pad = m == 0
+        y = torch.where(pad, 1.0, y)
+        eta[:, pad] = 0.0
+        Xt[:, pad] = 0.0
+        xg = Xt[j.long()].contiguous()
     ld0 = fb.battery_sums(eta, xg, torch.zeros(C, 1, device=device), y, m,
                           fam, extra)[:, 0]
     scal = torch.stack([torch.log1p(-rand(C)), ld0, (rand(C) < 0.8).to(f32),
@@ -98,11 +130,11 @@ BATTERY_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("pair", list(FAMILY_EXTRA))
+@pytest.mark.parametrize("pair", list(ALL_EXTRA))
 @pytest.mark.parametrize("C,n,K", BATTERY_SHAPES)
 def test_kernels_match_plain(cuda, pair, C, n, K):
     fam = mt.check_family(pair[0]).with_link(pair[1])
-    extra = FAMILY_EXTRA[pair]
+    extra = ALL_EXTRA[pair]
     a = _operands(fam, extra, C, n, K, cuda)
 
     def plain(**kw):
@@ -211,7 +243,7 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
                         a["y"], a["m"], fam, {})
     with pytest.raises(ValueError, match="KERNEL_FAMILIES"):
         fb.battery_sums(a["eta"], a["xg"], a["deltas"], a["y"], a["m"],
-                        mt.check_family("inverse_gaussian"), {})
+                        mt.check_family(USER_FAMILY), {})
 
 
 @pytest.mark.parametrize("impl", ["cuda3", "cuda2", "cuda"])
@@ -324,6 +356,150 @@ def test_fused_kernels_match_plain(cuda, pair, prior):
             == before["fused_coord_update"] + d)
 
 
+@pytest.mark.parametrize("pair", list(COMPOSED_EXTRA))
+def test_fused_composed_pairs_match_plain(cuda, pair):
+    """The composed route through both fused kernels: the sweep against the
+    plain version and against d coordinate launches (bitwise), at a ragged
+    n with the rows on chip and one n past ON_CHIP_N on the global rows."""
+    for n in (1003, fc.ON_CHIP_N + 5):
+        C, d = 16, 3
+        X, y = domain_data(pair, n, d)
+        prior = mt.Gamma(2.0, 2.0)
+        fam = mt.check_family(pair[0]).with_link(pair[1])
+        eng = mt.FusedCGGibbs(X, y, fam, mt.IIDPrior(prior, d),
+                              extra=COMPOSED_EXTRA[pair], tuning={"w": 0.5},
+                              device=cuda)
+        assert eng.impl == "cuda"
+        st = eng.init(0, C)
+        kw = dict(seed=st.seed, sweep=2, w=0.5, block_chains=8)
+        got = fc.fused_sweep(st.eta, st.beta, eng.Xt, eng.y, eng.family,
+                             eng.extra, prior, **kw)
+        want = fc.plain_fused_sweep(st.eta, st.beta, eng.Xt, eng.y,
+                                    **eng._plain_fns(), **kw)
+        _assert_fused_matches_plain(got, want[:3], want[3], 8)
+        assert torch.isfinite(got[1]).all() and torch.isfinite(got[0]).all()
+        eta, beta = st.eta, st.beta.clone()
+        for j in range(d):
+            eta, bj, _ = fc.fused_coord_update(
+                eta, beta[:, j].contiguous(), eng.Xt[j], eng.y, eng.family,
+                eng.extra, prior, j=j, **kw)
+            beta[:, j] = bj
+        torch.cuda.synchronize()
+        assert torch.equal(eta, got[0]) and torch.equal(beta, got[1])
+
+
+# per family: y values in its domain
+EDGE_Y = {"gaussian": (-1.5, 0.0, 2.0), "binomial": (0.0, 1.0),
+          "poisson": (0.0, 3.0), "negative.binomial": (0.0, 3.0),
+          "Gamma": (0.05, 2.0), "inverse.gaussian": (0.05, 2.0)}
+EDGE_ETA = (-40.0, -9.0, -1.5, -1.0, -0.3, -1e-30, 0.0, 1e-30, 0.3, 1.0,
+            2.5, 9.0, 40.0, 100.0)
+
+
+@pytest.mark.parametrize("pair", list(COMPOSED_EXTRA))
+def test_composed_densities_at_domain_edges(cuda, pair):
+    """One density per value (n = 1, the predictor 0 + 1 * delta_k): the
+    composed route equals the plain version across each link's domain and
+    past it, -inf where the plain version gives -inf and NaN only where it
+    gives NaN (probit's tails down to eta = -40 included)."""
+    fam = mt.check_family(pair[0]).with_link(pair[1])
+    extra = COMPOSED_EXTRA[pair]
+    one = torch.ones(1, 1, device=cuda)
+    deltas = torch.tensor([EDGE_ETA], device=cuda)
+    for yv in EDGE_Y[pair[0]]:
+        y = torch.full((1,), yv, device=cuda)
+        m = torch.ones(1, device=cuda)
+        got = fb.battery_sums(torch.zeros(1, 1, device=cuda), one, deltas, y,
+                              m, fam, extra)
+        want = fam.log_density_eta_rel(deltas, y, extra)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("pair", list(ALL_EXTRA))
+def test_every_builtin_pair_runs_its_kernels(cuda, pair):
+    """battery_impl="auto" resolves to "cuda3" and FusedCGGibbs to "cuda"
+    for every built-in pair, and a short run through each stays finite with
+    eta equal to X beta."""
+    n, d, C = 300, 3, 16
+    X, y = domain_data(pair, n, d)
+    fam = mt.check_family(pair[0]).with_link(pair[1])
+    prior = mt.IIDPrior(mt.Gamma(2.0, 2.0), d)
+    extra = ALL_EXTRA[pair]
+    fr = mt.FreeRunCGGibbs(X, y, fam, prior, extra=extra, tuning={"w": 0.5},
+                           device=cuda)
+    assert fr.battery_impl == "cuda3", fr.battery_reason
+    fu = mt.FusedCGGibbs(X, y, fam, prior, extra=extra, tuning={"w": 0.5},
+                         device=cuda)
+    assert fu.impl == "cuda", fu.impl_reason
+    fb.reset_launch_counts()
+    fc.reset_launch_counts()
+    st = fr.init(0, C)
+    st, draws, _ = fr.run(st, 5)
+    sf, betas, _ = fu.run(fu.init(0, C), 2)
+    torch.cuda.synchronize()
+    assert fb.launch_counts["battery_gather_commit"] > 0
+    assert fc.launch_counts["fused_sweep"] == 2
+    assert torch.isfinite(draws).all() and torch.isfinite(betas).all()
+    for s, eng in ((st, fr), (sf, fu)):
+        ref = s.beta.double() @ eng.Xt.double()
+        assert float((s.eta.double() - ref).abs().max()) < 1e-4
+
+
+def test_auto_per_obs_cache_warns_and_runs_plain(cuda):
+    """Gamma/inverse of shape 2 at n=10,000: eval_cache="auto" resolves to
+    "per_obs" (its roundoff estimate passes 0.01), so "auto" warns and runs
+    the plain battery; eval_cache="scalar" runs the kernels."""
+    X, y = domain_data(("Gamma", "inverse"), 10_000, 2)
+    prior = mt.IIDPrior(mt.Gamma(2.0, 2.0), 2)
+    with pytest.warns(RuntimeWarning, match="chose 'per_obs'"):
+        eng = mt.FreeRunCGGibbs(X, y, "Gamma", prior, extra={"shape": 2.0},
+                                tuning={"w": 0.5}, device=cuda)
+    assert eng.eval_cache == "per_obs" and eng.battery_impl == "torch"
+    eng = mt.FreeRunCGGibbs(X, y, "Gamma", prior, extra={"shape": 2.0},
+                            tuning={"w": 0.5}, eval_cache="scalar",
+                            device=cuda)
+    assert eng.battery_impl == "cuda3"
+
+
+def test_composed_route_refuses_other_pairs(cuda):
+    """The C entry points launch the composed route only for the fifteen
+    pairs it serves; any other runtime ids (gaussian/logit here) return
+    cudaErrorInvalidValue (1) and launch nothing."""
+    from mcmcglm_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    fam = mt.check_family("gaussian")
+    a = _operands(fam, {"sd": 1.0}, 8, 100, 4, cuda)
+    lsum = torch.zeros(8, 4, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = [a[k].data_ptr() for k in ("eta", "xg", "deltas", "y", "m")]
+    gaussian_logit = (fb.FAM_COMPOSED, 1.0, fb.COMPOSED_FAMILIES["gaussian"],
+                      fb.COMPOSED_LINKS["logit"])
+    assert lib.battery_sums(*ptr, lsum.data_ptr(), 8, 100, 4,
+                            *gaussian_logit, stream) == 1
+    gaussian_log = gaussian_logit[:3] + (fb.COMPOSED_LINKS["log"],)
+    assert lib.battery_sums(*ptr, lsum.data_ptr(), 8, 100, 4,
+                            *gaussian_log, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(lsum).all() and bool((lsum != 0).all())
+
+
+def test_user_family_warns_and_runs_plain_on_the_card(cuda):
+    X, y = domain_data(("gaussian", "identity"), 100, 2)
+    with pytest.warns(RuntimeWarning, match=USER_FAMILY):
+        fr = mt.FreeRunCGGibbs(X, y, USER_FAMILY,
+                               mt.IIDPrior(mt.Normal(), 2),
+                               tuning={"w": 0.5}, device=cuda)
+    assert fr.battery_impl == "torch"
+    with pytest.raises(ValueError, match="KERNEL_FAMILIES"):
+        mt.FreeRunCGGibbs(X, y, USER_FAMILY, mt.IIDPrior(mt.Normal(), 2),
+                          tuning={"w": 0.5}, battery_impl="cuda3",
+                          device=cuda)
+    st, draws, _ = fr.run(fr.init(0, 8), 3)
+    assert torch.isfinite(draws).all()
+
+
 @pytest.mark.parametrize("C,n,block_chains", [(8, 1, 8), (24, 1003, 8),
                                               (32, 4099, 16), (32, 300, 32)])
 def test_fused_kernels_at_ragged_shapes(cuda, C, n, block_chains):
@@ -393,8 +569,7 @@ def test_fused_wrappers_reject_bad_operands(cuda):
         fc.fused_sweep(*args, object(), **kw)
     with pytest.raises(ValueError, match="KERNEL_FAMILIES"):
         fc.fused_sweep(st.eta, st.beta, eng.Xt, eng.y,
-                       mt.check_family("inverse_gaussian"), {}, mt.Normal(),
-                       **kw)
+                       mt.check_family(USER_FAMILY), {}, mt.Normal(), **kw)
     with pytest.raises(TypeError, match="dtype"):
         fc.fused_sweep(st.eta, st.beta.double(), eng.Xt, eng.y, eng.family,
                        eng.extra, mt.Normal(), **kw)
@@ -403,11 +578,13 @@ def test_fused_wrappers_reject_bad_operands(cuda):
         fc.fused_coord_update(big, st.beta[:8, 0].contiguous(), big[0],
                               big[0], eng.family, eng.extra, mt.Normal(),
                               j=0, **kw)
-    # a family outside the kernel table runs the plain version, by name
+    # a family outside the kernel table runs the plain version, by name,
+    # and warns
     X = np.random.default_rng(0).uniform(0.5, 1.5, size=(50, 2))
-    e2 = mt.FusedCGGibbs(X, X[:, 0] + 1.0, "inverse_gaussian",
-                         mt.IIDPrior(mt.Normal(), 2), tuning={"w": 0.5},
-                         device=cuda)
+    with pytest.warns(RuntimeWarning, match=USER_FAMILY):
+        e2 = mt.FusedCGGibbs(X, X[:, 0] + 1.0, USER_FAMILY,
+                             mt.IIDPrior(mt.Normal(), 2), tuning={"w": 0.5},
+                             device=cuda)
     assert e2.impl == "torch" and "KERNEL_FAMILIES" in e2.impl_reason
 
 

@@ -31,6 +31,8 @@ import mcmcglm_tpu as mg  # noqa: E402
 import mcmcglm_tpu_torch as mt  # noqa: E402
 from mcmcglm_tpu.fused import FusedCGGibbs as JaxFused  # noqa: E402
 from mcmcglm_tpu.ops import pallas_cggibbs  # noqa: E402
+from mcmcglm_tpu_torch.datagen import domain_data, example_extra  # noqa: E402
+from mcmcglm_tpu_torch.ops import freerun_batteries as fb  # noqa: E402
 from mcmcglm_tpu_torch.ops import fused_cggibbs as fc  # noqa: E402
 from mcmcglm_tpu_torch.ops.philox import philox4x32, philox_uniform  # noqa: E402
 
@@ -50,10 +52,10 @@ def _constant_stream(value):
     return uniform
 
 
-@pytest.mark.parametrize("stream", ["zero_bits", 0.37, 0.81])
-@pytest.mark.parametrize("family", ["gaussian", "binomial", "poisson"])
-def test_fused_engine_matches_pallas_interpret(monkeypatch, family, stream):
-    X, y = _problem(family)
+def _check_against_pallas(monkeypatch, X, y, fams, prior, extra, stream):
+    """Both packages' fused engines on (X, y) at both granularities, from
+    the same state and with the same uniforms; fams = (JAX family, port
+    family), prior = (JAX distribution, port distribution)."""
     if stream == "zero_bits":
         # the interpreter's own PRNG: zero bits, clamped to 1e-12
         monkeypatch.setattr(fc, "philox_uniform",
@@ -64,11 +66,10 @@ def test_fused_engine_matches_pallas_interpret(monkeypatch, family, stream):
         monkeypatch.setattr(fc, "philox_uniform", _constant_stream(stream))
     runs = {}
     for gran in ("sweep", "coord"):
-        ej = JaxFused(X, y, family, mg.IIDPrior(mg.Normal(0, 1), D),
-                      extra=EXTRA[family], tuning={"w": 0.5},
-                      granularity=gran)
-        et = mt.FusedCGGibbs(X, y, family, mt.IIDPrior(mt.Normal(0, 1), D),
-                             extra=EXTRA[family], tuning={"w": 0.5},
+        ej = JaxFused(X, y, fams[0], mg.IIDPrior(prior[0], D), extra=extra,
+                      tuning={"w": 0.5}, granularity=gran)
+        et = mt.FusedCGGibbs(X, y, fams[1], mt.IIDPrior(prior[1], D),
+                             extra=extra, tuning={"w": 0.5},
                              granularity=gran, device="cpu")
         assert et.impl == "torch" and "not CUDA" in et.impl_reason
         sj = ej.init(jax.random.key(0), C)
@@ -88,6 +89,34 @@ def test_fused_engine_matches_pallas_interpret(monkeypatch, family, stream):
     assert torch.equal(s1.eta, s2.eta) and s1.sweep == s2.sweep == SWEEPS
     if stream != "zero_bits":  # the constant stream moves beta
         assert not torch.equal(b1[-1], b1[0])
+    return b1
+
+
+@pytest.mark.parametrize("stream", ["zero_bits", 0.37, 0.81])
+@pytest.mark.parametrize("family", ["gaussian", "binomial", "poisson"])
+def test_fused_engine_matches_pallas_interpret(monkeypatch, family, stream):
+    X, y = _problem(family)
+    _check_against_pallas(monkeypatch, X, y, (family, family),
+                          (mg.Normal(0, 1), mt.Normal(0, 1)), EXTRA[family],
+                          stream)
+
+
+# the fifteen pairs of the kernels' composed route: (family, link) -> extra
+COMPOSED = {p: example_extra(p) for p in fb.COMPOSED_PAIRS}
+
+
+@pytest.mark.parametrize("pair", list(COMPOSED), ids="/".join)
+def test_fused_composed_pairs_match_pallas_interpret(monkeypatch, pair):
+    """The pairs of the composed route (the CUDA kernels' FAM_COMPOSED)
+    through the port's plain fused updates against make_fused_sweep /
+    make_fused_coord_update in interpret mode, with the uniforms 0.37."""
+    X, y = domain_data(pair, N, D, seed=1)
+    fams = (mg.check_family(pair[0]).with_link(pair[1]),
+            mt.check_family(pair[0]).with_link(pair[1]))
+    betas = _check_against_pallas(monkeypatch, X, y, fams,
+                                  (mg.Gamma(2.0, 2.0), mt.Gamma(2.0, 2.0)),
+                                  COMPOSED[pair], 0.37)
+    assert torch.isfinite(betas).all()
 
 
 # Random123's known answers for Philox4x32-10 (kat_vectors)
