@@ -12,16 +12,25 @@ plain PyTorch, as the JAX package's runs in plain XLA, and drives the
 update-against-naive comparison (``perf.py``) and the batched tuning
 sweep (``sweep.py``).  Both kernel sets serve all 21 built-in
 family/link pairs.  The result's ``predict``, ``waic``, ``loo`` and
-``trace_plot`` and the native host ESS are ported too.  It imports torch
-and never JAX; the JAX package stays the reference that the port's tests
-hold it against.  What is not ported yet raises NotImplementedError
-naming its ROADMAP item.
+``trace_plot`` and the native host ESS are ported too.  Several cards run
+one process each over ``torch.distributed`` with a (chain, obs)
+``DeviceMesh`` (``parallel``: the chain-sharded and obs-sharded
+free-running engines and the sharded lockstep engine, ``mcmcglm(mesh=)``),
+and ``CheckpointManager`` saves and restores any engine's state bitwise.
+It imports torch and never JAX; the JAX package stays the reference that
+the port's tests hold it against.
 """
 
 __version__ = "0.1.0"
 
 from .api import mcmcglm
-from .convert import convert_fused_state, convert_lockstep_state, convert_state
+from .checkpoint import CHECKPOINT_FORMAT, CheckpointManager
+from .convert import (
+    convert_fused_state,
+    convert_lockstep_state,
+    convert_sharded_state,
+    convert_state,
+)
 from .datagen import generate_glm_data, generate_normal_data
 from .diagnostics import ess, split_rhat, summarize
 from .engine import CGGibbs, ChainState, EngineConfig
@@ -73,6 +82,10 @@ from .ops import (
     slice_stepping_out,
     slice_stepping_out_batched,
 )
+from .parallel import make_mesh
+from .parallel.freerun_obs_sharded import ObsShardedFreeRunCGGibbs
+from .parallel.freerun_sharded import ShardedFreeRunCGGibbs
+from .parallel.sharded_engine import ShardedCGGibbs
 from .perf import (
     compare_eta_comptime,
     compare_eta_comptime_across_nvars,

@@ -17,7 +17,12 @@ arrays) + family + beta_prior + slice tuning, returning an
   "auto" (the validation oracle) and a registered kernel the free-running
   engine does not serve (``qslice_fun``/``slice_fn``); there ``adapt_w``
   adapts the stepping-out widths in burn-in, ``thin > 1`` collects thinned
-  draws with streaming moments, and ``chunk_size`` runs in chunks.
+  draws with streaming moments, and ``chunk_size`` runs in chunks;
+* with a ``mesh`` (``parallel.make_mesh``, every rank calling alike) the
+  free-running routes go to ``ObsShardedFreeRunCGGibbs`` when the mesh
+  has more than one obs shard, else to ``ShardedFreeRunCGGibbs``; the
+  lockstep route goes to ``ShardedCGGibbs``; the fused engine is
+  single-card.  The result holds every chain on every rank.
 
 ``device`` defaults to ``"cuda"`` and raises when CUDA is missing; the CPU
 runs only when the caller passes ``device="cpu"``.  ``spec_k`` (through
@@ -40,6 +45,10 @@ from .models.families import check_family
 from .models.priors import IIDPrior, Normal, make_beta_prior
 from .ops.fused_cggibbs import MAX_FUSED_N
 from .ops.slice_kernels import get_slice_kernel
+from .parallel.freerun_obs_sharded import ObsShardedFreeRunCGGibbs
+from .parallel.freerun_sharded import ShardedFreeRunCGGibbs
+from .parallel.mesh import mesh_shape
+from .parallel.sharded_engine import ShardedCGGibbs
 from .results import MCMCGLM
 
 __all__ = ["mcmcglm"]
@@ -102,7 +111,8 @@ def mcmcglm(
     n_samples).  With ``thin > 1`` the kept draws follow the init row and
     ``burnin`` is 0.  ``adapt_w`` selects the lockstep engine's width
     adaptation; the free-running engine always adapts in burn-in.
-    ``mesh`` raises NotImplementedError naming its ROADMAP item.
+    ``mesh`` (a ``parallel.make_mesh`` mesh whose device type is
+    ``device``'s) selects the sharded engines (module docstring).
     """
     call = (
         f"mcmcglm(formula={formula!r}, family=..., n_samples={n_samples}, "
@@ -135,9 +145,14 @@ def mcmcglm(
     if mesh is not None:
         if use_fused:
             raise ValueError("engine='fused' is single-chip; mesh unsupported")
-        raise NotImplementedError(
-            "mesh is not ported yet: ROADMAP queue 1, item 10 (multi-GPU)"
-        )
+        if mesh.device_type != device.type:
+            raise ValueError(f"a {mesh.device_type!r} mesh cannot run on "
+                             f"device {str(device)!r}")
+        if not use_freerun and weights is not None:
+            raise ValueError(
+                "observation weights with a mesh are only supported by "
+                "the freerun engine"
+            )
 
     fam = check_family(family)
     if formula is not None:
@@ -193,11 +208,20 @@ def mcmcglm(
             # the classic one-evaluation pass only: the speculative
             # battery does not compose with the back-test
             engine_opts.pop("spec_k", None)
-        sampler = FreeRunCGGibbs(
-            design.X, design.y, fam, prior, extra=extra, tuning=tuning,
-            obs_weights=weights, dtype=dtype, offset=design.offset,
-            device=device, **engine_opts,
-        )
+        kw = dict(extra=extra, tuning=tuning, obs_weights=weights,
+                  dtype=dtype, offset=design.offset, device=device,
+                  **engine_opts)
+        if mesh is None:
+            sampler = FreeRunCGGibbs(design.X, design.y, fam, prior, **kw)
+        elif mesh_shape(mesh)[1] > 1:
+            # the tall-data path: per-shard partial sums all-reduced over
+            # the obs axis each pass
+            sampler = ObsShardedFreeRunCGGibbs(design.X, design.y, fam,
+                                               prior, mesh=mesh, **kw)
+        else:
+            # one independent automaton per card, no collectives
+            sampler = ShardedFreeRunCGGibbs(design.X, design.y, fam, prior,
+                                            mesh=mesh, **kw)
     else:
         config = EngineConfig(
             sample_method=sample_method,
@@ -205,9 +229,16 @@ def mcmcglm(
             slice_kernel=kernel if kernel is not None else "stepping_out",
             dtype=dtype,
         )
-        sampler = CGGibbs(design.X, design.y, fam, prior, extra=extra,
-                          config=config, tuning=tuning, obs_weights=weights,
-                          offset=design.offset, device=device)
+        if mesh is None:
+            sampler = CGGibbs(design.X, design.y, fam, prior, extra=extra,
+                              config=config, tuning=tuning,
+                              obs_weights=weights, offset=design.offset,
+                              device=device)
+        else:
+            sampler = ShardedCGGibbs(design.X, design.y, fam, prior,
+                                     extra=extra, config=config,
+                                     tuning=tuning, mesh=mesh,
+                                     offset=design.offset, device=device)
 
     progress_cb = None
     if progress and chunk_size <= 0:
@@ -240,24 +271,24 @@ def mcmcglm(
     # adaptive burn-in (its draws are kept as the burn-in rows), then
     # frozen-width shrink-only sampling
     state = sampler.init(seed, n_chains)
-    parts = [state.beta.cpu().numpy()[:, None, :]]
+    parts = [_host(sampler, state.beta)[:, None, :]]
     if burnin > 0:
         state, warm_betas, _ = sampler.warmup(state, burnin)
-        parts.append(warm_betas.cpu().numpy())
+        parts.append(_host(sampler, warm_betas))
     if progress_cb is not None:
         progress_cb(burnin, n_samples)
     # state.nev is cumulative: warmup evaluations are excluded from the
     # reported per-sweep counts
-    nev_warm = state.nev.cpu().numpy().copy()
+    nev_warm = _host(sampler, state.nev).copy()
     n_keep = n_samples - burnin
     if thin > 1:
         # thinned collection with the streaming moments on the device;
         # the draws are thinned, so n_evals is the flat per-sweep average
         n_outer = n_keep // thin
         state, _, kept, _ = sampler.run_thinned(state, n_outer, thin)
-        betas = np.concatenate([parts[0], kept.cpu().numpy()], axis=1)
+        betas = np.concatenate([parts[0], _host(sampler, kept)], axis=1)
         n_run = max(n_outer * thin, 1)
-        nev_per = (state.nev.cpu().numpy() - nev_warm) / n_run
+        nev_per = (_host(sampler, state.nev) - nev_warm) / n_run
         if progress_cb is not None:
             progress_cb(n_samples, n_samples)
         return result(betas,
@@ -269,8 +300,8 @@ def mcmcglm(
     while done < n_keep:
         step = min(step_size, n_keep - done)
         state, sb, nb = sampler.run(state, step)
-        parts.append(sb.cpu().numpy())
-        nev_parts.append(nb.cpu().numpy())
+        parts.append(_host(sampler, sb))
+        nev_parts.append(_host(sampler, nb))
         done += step
         if progress_cb is not None:
             progress_cb(burnin + done, n_samples)
@@ -281,6 +312,13 @@ def mcmcglm(
     return result(betas, n_evals, burnin, state)
 
 
+def _host(sampler, t):
+    """``t`` (chain-leading) as numpy; under a mesh, every chain shard's
+    rows (the sharded engines' ``gather``)."""
+    gather = getattr(sampler, "gather", None)
+    return (t if gather is None else gather(t)).cpu().numpy()
+
+
 def _lockstep(sampler, seed, n_samples, burnin, n_chains, chunk_size, thin,
               adapt_w, progress_cb, result):
     """The lockstep engine's run modes: thinned collection after a burn-in
@@ -288,7 +326,7 @@ def _lockstep(sampler, seed, n_samples, burnin, n_chains, chunk_size, thin,
     one ``sample`` call."""
     if thin > 1 and sampler.kernel is not None:
         state = sampler.init(seed, n_chains)
-        init_beta = state.beta.cpu().numpy()[:, None, :]
+        init_beta = _host(sampler, state.beta)[:, None, :]
         burn = sampler.warmup if adapt_w else sampler.run
         state, _, _ = burn(state, burnin)
         if progress_cb is not None:
@@ -297,14 +335,14 @@ def _lockstep(sampler, seed, n_samples, burnin, n_chains, chunk_size, thin,
         state, _, draws, nev = sampler.run_thinned(state, n_outer, thin)
         if progress_cb is not None:
             progress_cb(n_samples, n_samples)
-        return result(np.concatenate([init_beta, draws.cpu().numpy()], 1),
-                      nev.cpu().numpy(), 0, state)
+        return result(np.concatenate([init_beta, _host(sampler, draws)], 1),
+                      _host(sampler, nev), 0, state)
     if adapt_w:
         state = sampler.init(seed, n_chains)
-        parts = [state.beta.cpu().numpy()[:, None, :]]
+        parts = [_host(sampler, state.beta)[:, None, :]]
         state, warm, warm_nev = sampler.warmup(state, burnin)
-        parts.append(warm.cpu().numpy())
-        nevs = [warm_nev.cpu().numpy()]
+        parts.append(_host(sampler, warm))
+        nevs = [_host(sampler, warm_nev)]
         if progress_cb is not None:
             progress_cb(burnin, n_samples)
         n_keep = n_samples - burnin
@@ -313,8 +351,8 @@ def _lockstep(sampler, seed, n_samples, burnin, n_chains, chunk_size, thin,
         while done < n_keep:
             step = min(step_size, n_keep - done)
             state, sb, nb = sampler.run(state, step)
-            parts.append(sb.cpu().numpy())
-            nevs.append(nb.cpu().numpy())
+            parts.append(_host(sampler, sb))
+            nevs.append(_host(sampler, nb))
             done += step
             if progress_cb is not None:
                 progress_cb(burnin + done, n_samples)

@@ -18,19 +18,25 @@ in (0 by default) and pass index 1, where a fresh ``init`` starts.
 the fused engine: it cuts the padded eta back to n and takes the JAX
 state's ``seed_ctr`` as the port's Philox seed (the TPU stream itself does
 not carry over).  :func:`convert_lockstep_state` does it for the lockstep
-engine's ``ChainState`` (sweep 0, the Philox key of ``seed``).
+engine's ``ChainState`` (sweep 0, the Philox key of ``seed``), and
+:func:`convert_sharded_state` for one rank of the sharded free-running
+engines: the chain rows and observation columns of a JAX sharded state
+that belong to the rank, under the Philox key of its chain shard's seed.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
 
 from .engine import ChainState
 from .fused import FusedState
-from .ops.philox import key_tensor
+from .ops.philox import fold_seed, key_tensor
 
-__all__ = ["convert_fused_state", "convert_lockstep_state", "convert_state"]
+__all__ = ["convert_fused_state", "convert_lockstep_state",
+           "convert_sharded_state", "convert_state"]
 
 _INT_FIELDS = ("j", "phase", "stepdir", "budL", "budR", "n_shrink", "nev")
 _BOOL_FIELDS = ("e_aL", "e_aR", "h_aL", "h_aR", "dsep")  # DoublingState
@@ -59,6 +65,33 @@ def convert_state(jax_state, eng, seed: int = 0):
     fields["key"] = key_tensor(seed, eng.device)
     fields["ctr"] = torch.ones((), dtype=torch.int64, device=eng.device)
     return eng.state_cls(**fields)
+
+
+def convert_sharded_state(jax_state, eng, rank: int, seed: int = 0):
+    """The state of rank ``rank`` of ``eng`` (a port
+    ``ShardedFreeRunCGGibbs`` or ``ObsShardedFreeRunCGGibbs``) from the
+    global state of the JAX package's sharded engine on the same problem
+    and mesh shape: the rows of the rank's chain shard (rank // O) and the
+    observation columns of its obs shard (rank % O), with the Philox key of
+    ``fold_seed(seed, chain shard)`` and pass index 1 (the JAX per-shard
+    keys are dropped)."""
+    S, O = eng.n_chain_shards, eng.n_obs_shards
+    s, o = divmod(int(rank), O)
+    C = np.asarray(jax_state.beta).shape[0]
+    rows = slice(s * C // S, (s + 1) * C // S)
+    n_loc = eng.inner.n
+    cols = slice(o * n_loc, (o + 1) * n_loc)
+    fields = {}
+    for name in eng.inner.state_cls._fields:
+        if name in ("key", "ctr") or not hasattr(jax_state, name):
+            continue  # convert_state names a missing field
+        a = np.asarray(getattr(jax_state, name))
+        if name == "eta" or (name == "ld0" and a.ndim > 1):
+            # (C, n_pad) or pallas3's (C, S, 128): the slab's columns
+            a = a.reshape(a.shape[0], -1)[:, cols]
+        fields[name] = a[rows]
+    return convert_state(types.SimpleNamespace(**fields), eng.inner,
+                         seed=fold_seed(seed, s))
 
 
 def convert_lockstep_state(jax_state, eng, seed: int = 0,

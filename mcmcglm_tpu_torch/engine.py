@@ -295,6 +295,11 @@ class CGGibbs:
             return _LAZY_SLOTS
         return int(self.kernel.n_uniforms(tuning))
 
+    def _chain0(self, n_chains: int) -> int:
+        """The global index of this engine's first chain in the Philox
+        counter (a chain shard's offset; 0 here)."""
+        return 0
+
     def _sweep(self, beta, eta, ld, kstate, key, sweep: int, chain_tuning,
                adapt: bool):
         """One Gibbs pass over the d coordinates, every chain at the same
@@ -309,14 +314,17 @@ class CGGibbs:
         nev = torch.zeros(C, dtype=torch.int32, device=dev)
         rate = self._adapt_rate
         table = None
+        chain0 = self._chain0(C)
         for j in range(self.d):
             if W and j % chunk == 0:
                 coords = torch.arange(j, min(j + chunk, self.d), device=dev)
                 table = counter_uniforms(key, sweep, coords, C,
-                                         torch.arange(W, device=dev))
+                                         torch.arange(W, device=dev),
+                                         chain0=chain0)
             rng = SliceRNG(key, (sweep, j), C,
                            table=table[j % chunk] if W else None,
-                           block=self._block_iters, stats=self.loop_stats)
+                           block=self._block_iters, stats=self.loop_stats,
+                           chain0=chain0)
             beta_j = beta[:, j].clone()
             x_j = self.Xt[j]
             if self.kernel is None:

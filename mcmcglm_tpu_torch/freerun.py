@@ -346,6 +346,11 @@ class FreeRunCGGibbs:
         # out by selection, as in the battery kernels
         self._mask = mask
         self.reduce_fn = reduce_fn or (lambda t: masked_sum(t, mask))
+        # what turns the battery kernel's sums over this engine's
+        # observations into the sums over all of them: None here; the
+        # obs-sharded engine sets an all-reduce over its obs group (its
+        # reduce_fn holds the same all-reduce for the plain paths)
+        self.combine_sums = None
         self.max_stepouts = int(max_stepouts)
         self.max_shrink = int(max_shrink)
         # sampling runs use the m=1 shrink-only kernel by default; warmup

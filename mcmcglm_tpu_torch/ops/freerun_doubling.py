@@ -205,7 +205,10 @@ def run_pass_doubling(eng, s, sweep_count, draws, nevbuf, n_sweeps,
     phase = torch.where(bt_fail, 1, phase)
     phase = torch.where(bt_pass, 3, phase)
     stepdir = torch.where(init_L_done, 1, s.stepdir)
-    stepdir = torch.where(keep_doubling, torch.where(go_left, 2, 3), stepdir)
+    # (two Python scalars select an int64 tensor: keep the register int32)
+    stepdir = torch.where(keep_doubling,
+                          torch.where(go_left, 2, 3).to(stepdir.dtype),
+                          stepdir)
 
     # idle lanes freeze their registers (the boundary-idle hazard)
     def keep(new, old):

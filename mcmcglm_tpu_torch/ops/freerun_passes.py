@@ -350,6 +350,8 @@ def run_pass_spec(eng, s, sweep_count, draws, nevbuf, n_sweeps,
         xg = eng.Xt[s.j.long()]
         lsum_abs = battery_sums(s.eta, xg, deltas, eng.y, eng._mask,
                                 eng.family, eng._extra_host)
+        if eng.combine_sums is not None:  # an obs shard's partial sums
+            lsum_abs = eng.combine_sums(lsum_abs)
     else:
         xg = eng.Xt[s.j.long()]
         if eng.eval_cache == "scalar":

@@ -40,8 +40,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["counter_uniforms", "key_tensor", "pass_uniforms", "philox4x32",
-           "philox_uniform", "split_seed"]
+__all__ = ["counter_uniforms", "fold_seed", "key_tensor", "pass_uniforms",
+           "philox4x32", "philox_uniform", "split_seed"]
 
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -85,6 +85,16 @@ def split_seed(seed: int):
     return seed & _MASK32, seed >> 32
 
 
+def fold_seed(seed: int, data: int) -> int:
+    """A 64-bit seed derived from ``seed`` and the integer ``data`` (the
+    counterpart of ``jax.random.fold_in``): the first two words of
+    Philox4x32-10 of the counter (data, 0, 0, 0) under the key of
+    ``seed``.  The chain-sharded engines give chain shard s the seed
+    ``fold_seed(seed, s)``."""
+    w = philox4x32((int(data), 0, 0, 0), split_seed(seed))
+    return int(w[0]) | (int(w[1]) << 32)
+
+
 def philox_uniform(seed: int, sweep: int, j: int, t, n_chains: int,
                    device) -> torch.Tensor:
     """float32 uniforms of draw ``t`` at coordinate ``j`` of sweep
@@ -103,16 +113,17 @@ def _to_uniform(w0):
 
 
 def counter_uniforms(key: torch.Tensor, sweep: int, j, n_chains: int,
-                     t) -> torch.Tensor:
+                     t, chain0: int = 0) -> torch.Tensor:
     """float32 uniforms of counter (sweep, j, c, t) under the (2,) int64
-    ``key``, for chains c = 0 .. n_chains - 1, on the key's device.  ``j``
-    is an int or a (J,) tensor of coordinates (a leading J axis), ``t`` an
-    int slot or a (W,) tensor of slots (a trailing W axis): the result is
-    (C,), (C, W), (J, C) or (J, C, W)."""
+    ``key``, for chains c = chain0 .. chain0 + n_chains - 1, on the key's
+    device.  ``j`` is an int or a (J,) tensor of coordinates (a leading J
+    axis), ``t`` an int slot or a (W,) tensor of slots (a trailing W axis):
+    the result is (C,), (C, W), (J, C) or (J, C, W)."""
     dev = key.device
     jj = torch.as_tensor(j, dtype=torch.int64, device=dev)
     tt = torch.as_tensor(t, dtype=torch.int64, device=dev)
-    c = torch.arange(n_chains, dtype=torch.int64, device=dev)
+    c = torch.arange(chain0, chain0 + n_chains, dtype=torch.int64,
+                     device=dev)
     w0 = philox4x32((sweep, jj.reshape(-1, 1, 1), c.reshape(1, -1, 1),
                      tt.reshape(1, 1, -1)), key)[0]
     u = _to_uniform(w0)

@@ -86,8 +86,10 @@ class SliceRNG:
     """The random numbers and loop settings of one batched coordinate
     update.
 
-    Slot t of chain c is Philox4x32-10 of the counter (w0, w1, c, t) under
-    ``key``: the lockstep engine puts (sweep, coordinate) in (w0, w1).
+    Slot t of chain c is Philox4x32-10 of the counter (w0, w1, c +
+    ``chain0``, t) under ``key``: the lockstep engine puts (sweep,
+    coordinate) in (w0, w1), and a chain shard whose first chain is the
+    global chain ``chain0`` draws the global chains' streams.
     ``table`` (C, W), when given, holds slots 0 .. W-1 drawn ahead (the
     engine draws a chunk of coordinates in one call); a slot past it is
     drawn when read, with the same value, in blocks of ``_LAZY_SLOTS``
@@ -98,10 +100,12 @@ class SliceRNG:
 
     def __init__(self, key, words, n_chains: int, *, table=None,
                  block: int = _BLOCK_ITERS, stats: Optional[dict] = None,
-                 offset: int = 0, _lazy: Optional[dict] = None):
+                 offset: int = 0, chain0: int = 0,
+                 _lazy: Optional[dict] = None):
         self.key = key
         self.words = words
         self.n_chains = int(n_chains)
+        self.chain0 = int(chain0)
         self.table = table
         self.block = int(block)
         self.stats = stats if stats is not None else {"flag_reads": 0}
@@ -109,10 +113,10 @@ class SliceRNG:
         self._lazy = {} if _lazy is None else _lazy  # block index -> (C, 32)
 
     @classmethod
-    def from_seed(cls, seed: int, step: int, n_chains: int, device="cpu",
+    def from_seed(cls, seed: int, step: int, n_chains: int, *, device,
                   **kw) -> "SliceRNG":
         """The stream of ``seed`` at step ``step`` (counter words (step,
-        0)): for driving a kernel outside an engine."""
+        0)) on ``device``: for driving a kernel outside an engine."""
         return cls(key_tensor(seed, device), (int(step), 0), n_chains, **kw)
 
     def uniforms(self, t: int, k: int) -> torch.Tensor:
@@ -127,7 +131,7 @@ class SliceRNG:
                                      device=self.key.device)
                 self._lazy[b] = counter_uniforms(
                     self.key, self.words[0], self.words[1], self.n_chains,
-                    slots)
+                    slots, chain0=self.chain0)
         got = torch.cat([self._lazy[b] for b in range(first, last + 1)], 1)
         s = t - first * _LAZY_SLOTS
         return got[:, s:s + k]
@@ -140,7 +144,8 @@ class SliceRNG:
         """A view of the same stream whose slot t is this one's t + k."""
         return SliceRNG(self.key, self.words, self.n_chains, table=self.table,
                         block=self.block, stats=self.stats,
-                        offset=self.offset + k, _lazy=self._lazy)
+                        offset=self.offset + k, chain0=self.chain0,
+                        _lazy=self._lazy)
 
 
 def _freeze(act, new, old):

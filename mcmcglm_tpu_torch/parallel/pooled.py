@@ -17,6 +17,12 @@ Counterpart of ``mcmcglm_tpu/parallel/pooled.py``:
 Per (chain, half) the centered autocovariance at lag l needs the raw
 lagged cross products S_l, the sums of the first l and last l draws and
 the total: three (C, 2, L, d) buffers plus totals.
+
+Across ranks: a sharded engine's moments and ESS state hold its own
+chains.  :func:`merge_moments` and :func:`merge_ess` gather them over a
+chain group (the JAX package's chain-sharded arrays, whose reductions XLA
+turns into psums), and ``pooled_summary`` / ``ess_from_state`` take
+``group=`` to summarise all chains of the mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .mesh import gather_chains
 
 __all__ = [
     "ChainMoments",
@@ -35,6 +43,8 @@ __all__ = [
     "update_ess",
     "ess_from_state",
     "ess_device",
+    "merge_ess",
+    "merge_moments",
 ]
 
 
@@ -63,11 +73,22 @@ def update_moments(m: ChainMoments, beta: torch.Tensor) -> ChainMoments:
     return ChainMoments(count, mean, m2)
 
 
-def pooled_summary(m: ChainMoments):
+def merge_moments(m: ChainMoments, group) -> ChainMoments:
+    """The moments of every chain of ``group`` (a sharded engine's
+    ``chain_group``), in chain order; a scalar ``count`` stays one."""
+    count = m.count if m.count.dim() == 0 else gather_chains(m.count, group)
+    return ChainMoments(count, gather_chains(m.mean, group),
+                        gather_chains(m.m2, group))
+
+
+def pooled_summary(m: ChainMoments, group=None):
     """Pooled posterior mean, variance and (non-split) R-hat per
     parameter, (d,) each.  ``count`` may be a scalar (every chain holds
     the same number of draws) or per-chain (C,) (the free-running
-    engine's ``run_thinned``)."""
+    engine's ``run_thinned``).  ``group``: merge a shard's moments over
+    the chain group first (:func:`merge_moments`)."""
+    if group is not None:
+        m = merge_moments(m, group)
     C = m.mean.shape[0]
     if m.count.dim() == 1:
         Kc = m.count[:, None]
@@ -155,8 +176,18 @@ def update_ess(st: ESSState, x: torch.Tensor) -> ESSState:
                        count=t + 1)
 
 
-def ess_from_state(st: ESSState, cap: bool = True):
-    """Combined bulk ESS per parameter from the streamed state: (d,)."""
+def merge_ess(st: ESSState, group) -> ESSState:
+    """The streamed ESS state of every chain of ``group``, in chain order
+    (``count`` and ``planned`` are alike on every rank)."""
+    return st._replace(**{k: gather_chains(getattr(st, k), group)
+                          for k in ("s", "ring", "first", "total")})
+
+
+def ess_from_state(st: ESSState, cap: bool = True, group=None):
+    """Combined bulk ESS per parameter from the streamed state: (d,).
+    ``group``: merge a shard's state over the chain group first."""
+    if group is not None:
+        st = merge_ess(st, group)
     C, _, L, d = st.s.shape
     Kf = (st.planned // 2).to(st.s.dtype)  # draws per split half
     lags = torch.arange(L, dtype=st.s.dtype, device=st.s.device)[

@@ -941,6 +941,82 @@ def test_new_entry_points_default_to_the_card(cuda, monkeypatch):
         mt.mcmcglm_across_tuningparams([0.5], "w", X=X, y=y)
 
 
+def _bench_like(n=2_000, d=20):
+    X, y, _ = mt.generate_glm_data("binomial", n=n, d=d, seed=0)
+    kw = dict(tuning={"pseudo_scale": 2.0, "pseudo_adapt": True,
+                      "pseudo_c": 3.0}, slice_kernel="quantile", spec_k=4,
+              device="cuda")
+    return X, y, mt.IIDPrior(mt.Normal(0.0, 1.0), d), kw
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda):
+    import torch.distributed as dist
+
+    from mcmcglm_tpu_torch.parallel import distributed
+
+    if dist.is_initialized():
+        pytest.skip("this process already has a process group")
+    distributed.initialize(device_type="cuda")
+    yield mt.make_mesh(1, 1)
+    dist.destroy_process_group()
+
+
+def _runs_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a[0], b[0])) and all(
+        torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+
+def test_nccl_world_of_one_captures_the_all_reduce(nccl_world_of_one):
+    """On a (1, 1) NCCL mesh the obs-sharded engine's blocks are CUDA
+    graphs with the all-reduce inside; they equal the eager loop and the
+    unsharded engine on the same kernel (battery_sums) bitwise, and the
+    chain-sharded engine equals the unsharded cuda3 engine."""
+    from mcmcglm_tpu_torch.ops.philox import fold_seed
+
+    X, y, prior, kw = _bench_like()
+    mesh = nccl_world_of_one
+    graph = mt.ObsShardedFreeRunCGGibbs(X, y, "binomial", prior, mesh=mesh,
+                                        **kw)
+    eager = mt.ObsShardedFreeRunCGGibbs(X, y, "binomial", prior, mesh=mesh,
+                                        graph=False, **kw)
+    alone = mt.FreeRunCGGibbs(X, y, "binomial", prior, battery_impl="cuda",
+                              **kw)
+    assert graph.inner.battery_impl == "cuda"
+    assert graph.loop_reason.startswith("nccl") and graph.inner._graph_loop
+    assert not eager.inner._graph_loop
+    runs = []
+    fb.reset_launch_counts()
+    for eng, seed in ((graph, 0), (eager, 0), (alone, fold_seed(0, 0))):
+        st = eng.init(seed, 64)
+        st, _, _ = eng.warmup(st, 2)
+        runs.append(eng.run(st, 3))
+    assert fb.launch_counts["battery_sums"] > 0
+    assert graph.inner.loop_stats["captures"] >= 2
+    assert _runs_equal(runs[0], runs[1]) and _runs_equal(runs[0], runs[2])
+    chain = mt.ShardedFreeRunCGGibbs(X, y, "binomial", prior, mesh=mesh, **kw)
+    c3 = mt.FreeRunCGGibbs(X, y, "binomial", prior, **kw)
+    a = chain.run(chain.init(0, 64), 3)
+    b = c3.run(c3.init(fold_seed(0, 0), 64), 3)
+    assert chain.inner.battery_impl == "cuda3" and _runs_equal(a, b)
+
+
+def test_checkpoint_round_trip_on_cuda(cuda, tmp_path):
+    """A graph-loop state on the card saved, restored onto the card in a
+    fresh engine and continued equals the uninterrupted run bitwise."""
+    X, y, prior, kw = _bench_like()
+    eng = mt.FreeRunCGGibbs(X, y, "binomial", prior, **kw)
+    st = eng.init(1, 64)
+    st, _, _ = eng.warmup(st, 2)
+    cm = mt.CheckpointManager(str(tmp_path))
+    cm.save(2, st)
+    want = eng.run(st, 3)
+    fresh = mt.FreeRunCGGibbs(X, y, "binomial", prior, **kw)
+    step, st_r, _ = cm.restore(fresh.init(0, 64))
+    assert step == 2 and all(t.is_cuda for t in st_r)
+    assert _runs_equal(fresh.run(st_r, 3), want)
+
+
 def test_failed_capture_raises(cuda):
     """A pass that reads the device on the host cannot be captured: the
     loop raises instead of falling back to the eager loop.  (Last in the

@@ -57,6 +57,14 @@ def test_engine_names_unported_options(kw, item):
     assert bool((st.nev > 0).all())
 
 
+def _one_rank_mesh():
+    """A (1, 1) mesh on a world of one "gloo" process (this process)."""
+    from mcmcglm_tpu_torch.parallel import distributed
+
+    distributed.initialize(device_type="cpu")
+    return mt.make_mesh(device_type="cpu")
+
+
 # the options that once raised naming ROADMAP item 9 run the lockstep engine
 _LOCKSTEP = {"engine": "xla", "sample_method": "normal-normal",
              "linear_predictor_calc": "naive"}
@@ -68,14 +76,15 @@ _LOCKSTEP = {"engine": "xla", "sample_method": "normal-normal",
     dict(linear_predictor_calc="naive"), dict(mesh="a mesh"),
 ])
 def test_api_names_unported_options(kw):
-    """Every option listed here once raised; all run now but ``mesh``,
-    which still names its ROADMAP item."""
+    """Every option listed here once raised and runs now; ``mesh`` (ROADMAP
+    item 10) on a one-rank CPU mesh fits through ShardedFreeRunCGGibbs."""
     X, y = _problem()
     (name, value), = kw.items()
     if name == "mesh":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, device="cpu",
-                       **kw)
+        fit = mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, n_samples=8,
+                         burnin=2, device="cpu", mesh=_one_rank_mesh())
+        assert isinstance(fit.sampler, mt.ShardedFreeRunCGGibbs)
+        assert np.isfinite(fit.beta).all() and fit.beta.shape == (1, 9, 3)
         return
     lockstep = _LOCKSTEP.get(name) == value
     # the lockstep kernels take exactly their own tuning, as in the JAX
@@ -103,8 +112,8 @@ def test_mcmcglm_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_results_methods_not_ported_raise():
     """predict, waic, loo and trace_plot are ported now (ROADMAP queue 1,
-    item 6): each runs on a small fit; what is still not ported on the
-    user path, ``mesh``, raises naming its item."""
+    item 6): each runs on a small fit; so does ``mesh`` (item 10), on a
+    one-rank CPU mesh."""
     X, y = _problem()
     fit = mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, n_samples=6,
                      burnin=2, device="cpu")
@@ -115,6 +124,7 @@ def test_results_methods_not_ported_raise():
     import matplotlib.pyplot as plt
 
     plt.close(fit.trace_plot())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, mesh=object(),
-                   device="cpu")
+    fit = mt.mcmcglm(X=X, y=y, family="gaussian", w=0.5, n_samples=6,
+                     burnin=2, mesh=_one_rank_mesh(), device="cpu")
+    assert isinstance(fit.sampler, mt.ShardedFreeRunCGGibbs)
+    assert fit.predict().shape == (fit.n_chains * 4, X.shape[0])

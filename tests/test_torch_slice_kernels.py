@@ -87,8 +87,9 @@ def test_relative_target_fx0_semantics():
 
     kernel = mt.get_slice_kernel("stepping_out")
     x0 = torch.full((4,), 0.3, dtype=torch.float64)
-    r1 = kernel(SliceRNG.from_seed(0, 0, 4), x0, log_target, w=1.0)
-    r2 = kernel(SliceRNG.from_seed(0, 0, 4), x0, log_target,
+    r1 = kernel(SliceRNG.from_seed(0, 0, 4, device="cpu"), x0, log_target,
+                w=1.0)
+    r2 = kernel(SliceRNG.from_seed(0, 0, 4, device="cpu"), x0, log_target,
                 fx0=log_target(x0), w=1.0)
     np.testing.assert_allclose(r1.x.numpy(), r2.x.numpy(), rtol=1e-12)
     np.testing.assert_array_equal(r2.n_evals.numpy(), r1.n_evals.numpy() - 1)
@@ -97,7 +98,8 @@ def test_relative_target_fx0_semantics():
 def test_chains_independent():
     kernel = mt.get_slice_kernel("stepping_out")
     x0 = torch.linspace(-1.0, 1.0, 8, dtype=torch.float64)
-    out = kernel(SliceRNG.from_seed(7, 0, 8), x0, _std_normal, w=1.0).x
+    out = kernel(SliceRNG.from_seed(7, 0, 8, device="cpu"), x0, _std_normal,
+                 w=1.0).x
     assert len(np.unique(out.numpy())) == 8
 
 
@@ -109,7 +111,8 @@ def test_bounded_worst_case():
 
     kernel = mt.get_slice_kernel("stepping_out")
     x0 = torch.zeros(3, dtype=torch.float64)
-    res = kernel(SliceRNG.from_seed(0, 0, 3), x0, log_target, w=0.5)
+    res = kernel(SliceRNG.from_seed(0, 0, 3, device="cpu"), x0, log_target,
+                 w=0.5)
     assert (res.x.abs() < 1e-9).all()
     # f(x0) and both ends (below the level: no step), then at most the 64
     # shrinks of the budget
@@ -171,9 +174,9 @@ def test_registry():
     try:
         assert mt.get_slice_kernel("my_registered") is k
         x0 = torch.zeros(4, dtype=torch.float64)
-        a = k(SliceRNG.from_seed(1, 0, 4), x0, _std_normal, w=1.0)
-        b = mt.slice_stepping_out(SliceRNG.from_seed(1, 0, 4), x0,
-                                  _std_normal, w=1.0)
+        rng = [SliceRNG.from_seed(1, 0, 4, device="cpu") for _ in range(2)]
+        a = k(rng[0], x0, _std_normal, w=1.0)
+        b = mt.slice_stepping_out(rng[1], x0, _std_normal, w=1.0)
         np.testing.assert_array_equal(a.x.numpy(), b.x.numpy())
     finally:
         del mt.SLICE_KERNELS["my_registered"]
