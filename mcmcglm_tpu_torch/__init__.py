@@ -17,7 +17,10 @@ one process each over ``torch.distributed`` with a (chain, obs)
 ``DeviceMesh`` (``parallel``: the chain-sharded and obs-sharded
 free-running engines and the sharded lockstep engine, ``mcmcglm(mesh=)``),
 and ``CheckpointManager`` saves and restores any engine's state bitwise.
-It imports torch and never JAX; the JAX package stays the reference that
+The cross-validation baselines (``baselines``: NUTS, HMC, ADVI and the
+whole-vector elliptical, hyperrectangle, latent and quantile slice
+samplers) run on the same log posterior, and ``utils.profiling`` traces
+and times a block.  It imports torch and never JAX; the JAX package stays the reference that
 the port's tests hold it against.
 """
 
@@ -26,8 +29,11 @@ __version__ = "0.1.0"
 from .api import mcmcglm
 from .checkpoint import CHECKPOINT_FORMAT, CheckpointManager
 from .convert import (
+    convert_advi_result,
+    convert_ess_state,
     convert_fused_state,
     convert_lockstep_state,
+    convert_mv_slice_state,
     convert_sharded_state,
     convert_state,
 )

@@ -22,6 +22,10 @@ engine's ``ChainState`` (sweep 0, the Philox key of ``seed``), and
 :func:`convert_sharded_state` for one rank of the sharded free-running
 engines: the chain rows and observation columns of a JAX sharded state
 that belong to the rank, under the Philox key of its chain shard's seed.
+The baselines' states carry over the same way: :func:`convert_ess_state`
+(``ESSState``: beta, eta) and :func:`convert_mv_slice_state`
+(``MVSliceState``: beta, lp, aux) at step 0 under the Philox key of
+``seed``, and :func:`convert_advi_result` (mean, scale, ELBO trace).
 """
 
 from __future__ import annotations
@@ -35,8 +39,10 @@ from .engine import ChainState
 from .fused import FusedState
 from .ops.philox import fold_seed, key_tensor
 
-__all__ = ["convert_fused_state", "convert_lockstep_state",
-           "convert_sharded_state", "convert_state"]
+__all__ = ["convert_advi_result", "convert_ess_state",
+           "convert_fused_state", "convert_lockstep_state",
+           "convert_mv_slice_state", "convert_sharded_state",
+           "convert_state"]
 
 _INT_FIELDS = ("j", "phase", "stepdir", "budL", "budR", "n_shrink", "nev")
 _BOOL_FIELDS = ("e_aL", "e_aR", "h_aL", "h_aR", "dsep")  # DoublingState
@@ -128,3 +134,45 @@ def convert_fused_state(jax_state, eng):
         seed=int(np.asarray(jax_state.seed_ctr)),
         sweep=0,
     )
+
+
+def convert_ess_state(jax_state, eng, seed: int = 0):
+    """The port's ``ESSState`` for ``eng`` (a port ``EllipticalSliceGLM``)
+    from a JAX ``ESSState`` of the same problem: its beta and eta, step 0
+    and the Philox key of ``seed`` (the per-chain threefry keys are
+    dropped)."""
+    from .baselines.ess_mv import ESSState
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=eng.dtype, device=eng.device)
+
+    return ESSState(tensor(jax_state.beta), tensor(jax_state.eta),
+                    key_tensor(seed, eng.device), 0)
+
+
+def convert_mv_slice_state(jax_state, eng, seed: int = 0):
+    """The port's ``MVSliceState`` for ``eng`` (a port hyperrect, latent or
+    quantile slice sampler) from a JAX ``MVSliceState`` of the same
+    problem: beta, the cached log posterior and the kernel state (the
+    latent widths (C, d), else (C,)), step 0 and the Philox key of
+    ``seed``."""
+    from .baselines.mv_slice import MVSliceState
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=eng.dtype, device=eng.device)
+
+    return MVSliceState(tensor(jax_state.beta), tensor(jax_state.lp),
+                        key_tensor(seed, eng.device), tensor(jax_state.aux),
+                        0)
+
+
+def convert_advi_result(jax_result, device="cuda"):
+    """The port's ``ADVIResult`` from a JAX ``ADVIResult``: mean, scale and
+    ELBO trace in their own dtype on ``device`` (default "cuda", which
+    raises without CUDA)."""
+    from .api import entry_device
+    from .baselines.advi import ADVIResult
+
+    device = entry_device(device, "convert_advi_result")
+    return ADVIResult(*(torch.tensor(np.asarray(a), device=device)
+                        for a in jax_result))

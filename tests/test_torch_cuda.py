@@ -1017,6 +1017,102 @@ def test_checkpoint_round_trip_on_cuda(cuda, tmp_path):
     assert _runs_equal(fresh.run(st_r, 3), want)
 
 
+# -- the baselines (plain PyTorch on the card) ------------------------------
+
+def _baseline_gaussian():
+    """tests/test_baselines.py's gaussian problem and closed form."""
+    rng = np.random.default_rng(0)
+    n, d = 500, 4
+    X = np.column_stack([np.ones(n), rng.normal(size=(n, d - 1))])
+    y = rng.normal(X @ np.array([1.0, -0.5, 0.8, 0.2]), 1.0)
+    cov = np.linalg.inv(X.T @ X + np.eye(d))
+    return X, y, cov @ (X.T @ y), np.sqrt(np.diag(cov))
+
+
+@pytest.mark.parametrize("pair", [("binomial", "logit"), ("poisson", "log"),
+                                  ("Gamma", "inverse"),
+                                  ("inverse.gaussian", "1/mu^2")],
+                         ids=lambda p: "/".join(p))
+def test_baseline_logpost_on_the_card_matches_float64(cuda, pair):
+    """float32 on the card against float64 on the host: values rtol 1e-5,
+    gradients within 1e-4 of their norm (chip_smoke phase 8a's limits)."""
+    from mcmcglm_tpu_torch import baselines as tb
+    from mcmcglm_tpu_torch.baselines.logdensity import value_and_grad
+
+    X, y = domain_data(pair, 5_000, 6, seed=0)
+    fam = mt.check_family(pair[0]).with_link(pair[1])
+    prior = mt.IIDPrior(mt.StudentT(3.0, 0.0, 1.0), 6)
+    kw = dict(extra=example_extra(pair))
+    lp = tb.make_log_posterior(X, y, fam, prior, **kw)
+    lp64 = tb.make_log_posterior(X, y, fam, prior, dtype=torch.float64,
+                                 device="cpu", **kw)
+    b = torch.tensor(np.random.default_rng(1).uniform(0.3, 1.2, (5, 6)),
+                     dtype=torch.float32)
+    v, g = value_and_grad(lp, b.to(cuda))
+    assert v.is_cuda and g.is_cuda
+    v64, g64 = value_and_grad(lp64, b.double())
+    v, g = v.double().cpu(), g.double().cpu()
+    assert ((v - v64).abs() <= 1e-5 * v64.abs()).all()
+    assert ((g - g64).norm(dim=1) <= 1e-4 * g64.norm(dim=1)).all()
+
+
+@pytest.mark.parametrize("sampler", ["nuts", "hmc"])
+def test_baseline_nuts_and_hmc_recover_the_gaussian_posterior(cuda,
+                                                              sampler):
+    """tests/test_baselines.py's law test on the card (float64)."""
+    from mcmcglm_tpu_torch import baselines as tb
+
+    X, y, mu, sd = _baseline_gaussian()
+    lp = tb.make_log_posterior(X, y, "gaussian", mt.IIDPrior(mt.Normal(), 4),
+                               extra={"sd": 1.0}, dtype=torch.float64)
+    fn = tb.nuts_sample if sampler == "nuts" else tb.hmc_sample
+    res = fn(1, lp, torch.zeros((4, 4), dtype=torch.float64),
+             n_warmup=400, n_samples=400)
+    assert res.samples.is_cuda
+    draws = res.samples.cpu().numpy().reshape(-1, 4)
+    np.testing.assert_allclose(draws.mean(0), mu, atol=float(5 * sd.max() / 20))
+    np.testing.assert_allclose(draws.std(0), sd, rtol=0.3)
+    assert float(res.accept_rate.mean()) > 0.5
+
+
+def test_baseline_chains_independent_of_batch_on_the_card(cuda,
+                                                         monkeypatch):
+    """Chain c bitwise the same at C=3 and C=5 and at loop block lengths 1
+    and 4, on the card, for every baseline sampler with chains."""
+    from mcmcglm_tpu_torch import baselines as tb
+    from mcmcglm_tpu_torch.baselines import nuts as t_nuts
+
+    X, y, _ = mt.generate_glm_data("binomial", n=2_000, d=3, seed=1)
+    prior = mt.IIDPrior(mt.Normal(0.0, 1.0), 3)
+    lp = tb.make_log_posterior(X, y, "binomial", prior)
+    init = torch.tensor(np.random.default_rng(6).normal(size=(5, 3)) * 0.3,
+                        dtype=torch.float32)
+
+    def same(runs, k):
+        return all(torch.equal(a, b[:3]) for r in runs[1:]
+                   for a, b in zip(runs[0][:k], r[:k]))
+
+    cases = ((3, 1), (5, 1), (3, 4), (5, 4))
+    nuts = []
+    for C, B in cases:
+        monkeypatch.setattr(t_nuts, "_block_iters", B)
+        nuts.append(tb.nuts_sample(2, lp, init[:C], n_warmup=20,
+                                   n_samples=20, max_depth=5))
+    assert same(nuts, 6)
+    hmc = [tb.hmc_sample(2, lp, init[:C], n_warmup=20, n_samples=20,
+                         num_leapfrog=6) for C in (3, 5)]
+    assert same(hmc, 4)
+    for cls in (tb.EllipticalSliceGLM, tb.HyperrectSliceGLM,
+                tb.LatentSliceGLM, tb.QuantileSliceGLM):
+        runs = []
+        for C, B in cases:
+            smp = cls(X, y, "binomial", prior)
+            smp._block_iters = B
+            st, betas, nev = smp.run(smp.init(4, C), 20)
+            runs.append((st.beta, betas, nev))
+        assert same(runs, 3), cls.__name__
+
+
 def test_failed_capture_raises(cuda):
     """A pass that reads the device on the host cannot be captured: the
     loop raises instead of falling back to the eager loop.  (Last in the

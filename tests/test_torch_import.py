@@ -4,6 +4,7 @@ once named as unported."""
 
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,6 +31,33 @@ def test_import_loads_neither_jax_nor_triton():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, (proc.stdout, proc.stderr)
+
+
+def test_baselines_load_neither_jax_nor_optax():
+    """The baselines, the profiling helpers, and the card-side config script
+    import the port only: no JAX, no optax, no JAX package."""
+    code = (
+        "import sys, runpy, mcmcglm_tpu_torch.baselines, "
+        "mcmcglm_tpu_torch.utils.profiling; "
+        "runpy.run_path('scripts/torch_baseline_configs.py', "
+        "run_name='not_main'); "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'mcmcglm_tpu', 'pandas')]; "
+        "print(','.join(bad)); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, (proc.stdout, proc.stderr)
+    from mcmcglm_tpu_torch import baselines
+    from mcmcglm_tpu_torch.utils import profiling
+
+    assert set(baselines.__all__) == {
+        "make_log_posterior", "hmc_sample", "HMCResult", "nuts_sample",
+        "NUTSResult", "advi_fit", "ADVIResult", "EllipticalSliceGLM",
+        "HyperrectSliceGLM", "LatentSliceGLM", "QuantileSliceGLM"}
+    assert all(hasattr(baselines, name) for name in baselines.__all__)
+    assert set(profiling.__all__) == {"trace", "time_block", "Timer"}
 
 
 def _problem(n=50, d=3):
