@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import sys
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -56,14 +57,18 @@ class Design:
     offset: Optional[np.ndarray] = None  # (n,) additive eta offset, or None
 
 
-def _as_column_dict(data) -> Mapping[str, np.ndarray]:
-    try:  # pandas DataFrame
-        import pandas as pd
+def _pandas():
+    """The pandas module if this process has imported it, else None: an
+    object can be a pandas object only once pandas is imported, so the
+    checks below never import it themselves (the GPU machine has none, and
+    a dict of arrays needs none)."""
+    return sys.modules.get("pandas")
 
-        if isinstance(data, pd.DataFrame):
-            return {c: data[c] for c in data.columns}
-    except ImportError:  # pragma: no cover
-        pass
+
+def _as_column_dict(data) -> Mapping[str, np.ndarray]:
+    pd = _pandas()
+    if pd is not None and isinstance(data, pd.DataFrame):
+        return {c: data[c] for c in data.columns}
     if isinstance(data, Mapping):
         return dict(data)
     raise TypeError(
@@ -72,29 +77,20 @@ def _as_column_dict(data) -> Mapping[str, np.ndarray]:
 
 
 def _is_categorical(col) -> bool:
-    try:
-        import pandas as pd
-
-        if isinstance(col, pd.Series):
-            if isinstance(col.dtype, pd.CategoricalDtype):
-                return True
-            if col.dtype == object or col.dtype == bool:
-                return True
-            return False
-    except ImportError:  # pragma: no cover
-        pass
+    pd = _pandas()
+    if pd is not None and isinstance(col, pd.Series):
+        if isinstance(col.dtype, pd.CategoricalDtype):
+            return True
+        return col.dtype == object or col.dtype == bool
     arr = np.asarray(col)
     return arr.dtype.kind in ("U", "S", "O", "b")
 
 
 def _levels(col):
-    try:
-        import pandas as pd
-
-        if isinstance(col, pd.Series) and isinstance(col.dtype, pd.CategoricalDtype):
-            return list(col.cat.categories)
-    except ImportError:  # pragma: no cover
-        pass
+    pd = _pandas()
+    if (pd is not None and isinstance(col, pd.Series)
+            and isinstance(col.dtype, pd.CategoricalDtype)):
+        return list(col.cat.categories)
     return sorted(set(np.asarray(col).tolist()))
 
 

@@ -294,6 +294,12 @@ class MCMCGLM:
             f"burnin: {self.burnin}",
             "",
             "Average of parameter samples:",
-            self.coef().to_string(),
         ]
+        # the JAX package prints coef() through pandas; the same table in
+        # numpy, so a fit prints where pandas is missing (the GPU machine)
+        means = self.post_burnin().reshape(-1, self.d).mean(axis=0)
+        names = [str(c) for c in self.columns]
+        values = [f"{v: .6f}" for v in means]
+        wn, wv = max(map(len, names)), max(map(len, values))
+        lines += [f"{n:<{wn}}   {v:>{wv}}" for n, v in zip(names, values)]
         return "\n".join(lines)
