@@ -31,9 +31,10 @@ _COMPILE_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _LINK_FLAGS = [*_ARCH, "-shared"]
 
 _LIB = None
-# filled by the first load: library path, build seconds (0.0 when the
-# library was already built), nvcc's output (ptxas register/spill report;
-# kept as nvcc.log beside the library, so a cached build reports it too)
+# filled by the first load: library path, whether it was already built
+# (``cached``), build seconds (0.0 when it was), nvcc's output (ptxas
+# register/spill report; kept as nvcc.log beside the library, so a cached
+# build reports it too)
 BUILD_INFO: dict = {}
 
 
@@ -138,7 +139,8 @@ def load_library() -> ctypes.CDLL:
     for path in sources + headers:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     out = _BUILD_ROOT / h.hexdigest()[:16] / "libmcmcglm_kernels.so"
-    if out.exists():
+    BUILD_INFO["cached"] = out.exists()
+    if BUILD_INFO["cached"]:
         saved = out.with_name("nvcc.log")
         BUILD_INFO.update(seconds=0.0, log=saved.read_text()
                           if saved.exists() else "(cached build)")

@@ -4,7 +4,8 @@ diagnosis and the obs-sharded capacity) on the CPU: each imports no JAX,
 JAX package, pandas, matplotlib or triton module, refuses to run without
 CUDA unless asked for the CPU, and at ``--small --device cpu`` emits JSON
 rows with its documented keys; the capacity rows halve exactly at obs =
-2."""
+2.  The graph-capture study (``torch_capture_modes.py``) runs on the card
+only: here, its imports."""
 
 import concurrent.futures as cf
 import json
@@ -21,7 +22,7 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = ["torch_pass_budget.py", "torch_chain_scaling.py",
            "torch_spec_probe.py", "torch_quantile_adapt_probe.py",
            "torch_latent_ab_probe.py", "torch_laplace_diag.py",
-           "torch_obs_sharded_capacity.py"]
+           "torch_obs_sharded_capacity.py", "torch_capture_modes.py"]
 FREERUN_KEYS = {"chains", "warmup", "timed_sweeps", "window_seconds",
                 "sweeps_per_s", "chain_sweeps_per_s", "evals_per_coord",
                 "passes_per_sweep", "ms_per_pass", "min_ess", "median_ess",
