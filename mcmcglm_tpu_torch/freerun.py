@@ -37,6 +37,7 @@ from .models.priors import BetaPrior
 from .ops.freerun_batteries import configure_battery, launch_counts, masked_sum
 from .ops.philox import key_tensor, pass_uniforms
 from .passloop import BlockLoop, new_stats
+from .utils.profiling import part, ranged, span
 from .utils.linalg import matvec
 
 __all__ = ["FreeRunCGGibbs", "FreeRunState", "QuantileState"]
@@ -428,6 +429,7 @@ class FreeRunCGGibbs:
         self._loops: dict = {}
         self.loop_stats = new_stats()
 
+    @ranged("pass.prior")
     def _coord_lp(self, beta, j, b):
         return self.prior.coord_log_prob(beta, j, b).to(self.dtype)
 
@@ -451,6 +453,7 @@ class FreeRunCGGibbs:
             return torch.special.ndtr((x - loc) / scale)
         return 0.5 + torch.atan((x - loc) / scale) / math.pi
 
+    @ranged("pass.prior")
     def quantile_logpdf(self, x, loc=None, scale=None):
         if loc is None and scale is None and self.q_family == "normal":
             z = (x - self.q_loc) / self.q_scale
@@ -625,6 +628,7 @@ class FreeRunCGGibbs:
 
     # -- randomness -------------------------------------------------------
 
+    @ranged("pass.philox")
     def _randoms(self, key, p0, n_passes: int, n_chains: int) -> dict:
         """The random inputs of the passes with indices p0 .. p0 +
         n_passes - 1, as the pass functions take them, each with a leading
@@ -695,6 +699,7 @@ class FreeRunCGGibbs:
         )
 
     @staticmethod
+    @ranged("pass.scatters")
     def _commit_row(arr, j, val, gate=None):
         """A copy of ``arr`` with arr[c, j_c] = val_c (for lanes where
         ``gate``)."""
@@ -707,6 +712,7 @@ class FreeRunCGGibbs:
         return out
 
     @staticmethod
+    @ranged("pass.scatters")
     def _sweep_buffers(draws, nevbuf, sweep_count, beta, nev_new,
                        sweep_done):
         """Record completed sweeps into the draws/nevbuf buffers, in place.
@@ -761,10 +767,11 @@ class FreeRunCGGibbs:
             R = eng._randoms(s.key, s.ctr, B, sc.shape[0])
             for i in range(B):
                 p = s.ctr
-                s, sc, draws, nevbuf = step(
-                    eng, s, sc, draws, nevbuf, quota, adapt, shrink_only,
-                    stepout, live=budget > 0,
-                    **{k: v[i] for k, v in R.items()})
+                with part("pass.automaton"):
+                    s, sc, draws, nevbuf = step(
+                        eng, s, sc, draws, nevbuf, quota, adapt,
+                        shrink_only, stepout, live=budget > 0,
+                        **{k: v[i] for k, v in R.items()})
                 budget = budget - (s.ctr - p)
                 if gen:
                     bad = bad + torch.isnan(s.w).sum()
@@ -781,8 +788,8 @@ class FreeRunCGGibbs:
         loop = self._loops.pop(key_, None) if self._graph_loop else None
         if loop is None:
             loop = BlockLoop(self._block_fn(B, adapt, shrink_only),
-                             graph=self._graph_loop, counters=[launch_counts],
-                             stats=self.loop_stats)
+                             passes=B, graph=self._graph_loop,
+                             counters=[launch_counts], stats=self.loop_stats)
         if self._graph_loop:  # an eager loop holds nothing to reuse
             self._loops[key_] = loop  # the most recently used last
             while len(self._loops) > _MAX_GRAPHS:
@@ -847,17 +854,19 @@ class FreeRunCGGibbs:
         allocates).  Call until ``(sweep_count >= n_sweeps).all()``;
         bitwise the same as one :meth:`run`."""
         C = int(state.beta.shape[0])
-        if sweep_count is None:
-            sweep_count = torch.zeros(C, dtype=torch.int32, device=self.device)
-        if draws is None or nevbuf is None:
-            d_new, nb_new = self._buffers(C, n_sweeps)
-            draws = d_new if draws is None else draws
-            nevbuf = nb_new if nevbuf is None else nevbuf
-        return self._run_pass_block(
-            state, sweep_count, n_sweeps=n_sweeps, n_passes=n_passes,
-            adapt=False, shrink_only=self.shrink_only, draws=draws,
-            nevbuf=nevbuf,
-        )
+        with span("freerun.run_passes", C=C, n_sweeps=int(n_sweeps)):
+            if sweep_count is None:
+                sweep_count = torch.zeros(C, dtype=torch.int32,
+                                          device=self.device)
+            if draws is None or nevbuf is None:
+                d_new, nb_new = self._buffers(C, n_sweeps)
+                draws = d_new if draws is None else draws
+                nevbuf = nb_new if nevbuf is None else nevbuf
+            return self._run_pass_block(
+                state, sweep_count, n_sweeps=n_sweeps, n_passes=n_passes,
+                adapt=False, shrink_only=self.shrink_only, draws=draws,
+                nevbuf=nevbuf,
+            )
 
     def _auto_stepout(self, n_sweeps: int) -> int:
         """Default stepping-out quota of the two-phase warmup."""
@@ -870,11 +879,13 @@ class FreeRunCGGibbs:
         and is bitwise the same as one :meth:`warmup` call."""
         if stepout_sweeps is None:
             stepout_sweeps = self._auto_stepout(n_sweeps)
-        state, sweep_count, _, _ = self._run_pass_block(
-            state, sweep_count, n_sweeps=n_sweeps, n_passes=n_passes,
-            adapt=True, shrink_only=False,
-            stepout_sweeps=int(stepout_sweeps),
-        )
+        with span("freerun.warmup_passes", C=int(state.beta.shape[0]),
+                  n_sweeps=int(n_sweeps)):
+            state, sweep_count, _, _ = self._run_pass_block(
+                state, sweep_count, n_sweeps=n_sweeps, n_passes=n_passes,
+                adapt=True, shrink_only=False,
+                stepout_sweeps=int(stepout_sweeps),
+            )
         return state, sweep_count
 
     def run(self, state, n_sweeps: int):
@@ -883,8 +894,10 @@ class FreeRunCGGibbs:
         Returns (state, draws (C, n_sweeps, d), nev_at_sweep (C, n_sweeps))
         where nev_at_sweep[c, s] is chain c's cumulative evaluation count
         at the completion of its s-th sweep."""
-        return self._run(state, n_sweeps, adapt=False,
-                         shrink_only=self.shrink_only)
+        with span("freerun.run", C=int(state.beta.shape[0]),
+                  n_sweeps=int(n_sweeps)):
+            return self._run(state, n_sweeps, adapt=False,
+                             shrink_only=self.shrink_only)
 
     def run_thinned(self, state, n_outer: int, thin: int, moments=None,
                     ess: bool = False, ess_max_lag: int = 64):
@@ -942,8 +955,10 @@ class FreeRunCGGibbs:
         doubling, conjugate) just burn in."""
         if stepout_sweeps is None:
             stepout_sweeps = self._auto_stepout(n_sweeps)
-        return self._run(state, n_sweeps, adapt=True, shrink_only=False,
-                         stepout_sweeps=int(stepout_sweeps))
+        with span("freerun.warmup", C=int(state.beta.shape[0]),
+                  n_sweeps=int(n_sweeps)):
+            return self._run(state, n_sweeps, adapt=True, shrink_only=False,
+                             stepout_sweeps=int(stepout_sweeps))
 
     def sample(self, seed, n_samples: int, n_chains: int = 1,
                chunk_size: int = 0, progress=None):

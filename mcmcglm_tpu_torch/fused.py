@@ -22,6 +22,10 @@ state's ``seed`` and counted by its ``sweep``: a chain's draws depend on
 neither ``block_chains`` nor ``granularity``.  The TPU kernels' per-core
 generator has no counterpart, so the two packages agree in law (and draw
 for draw when a test hands both the same uniforms).
+
+Each ``run`` records a ``fused.run`` span and in it one ``fused.sweep``
+span per sweep, timed on the card by two events around the sweep's
+launches (``utils/profiling.py``), at either granularity.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from .ops.fused_cggibbs import (
     plain_fused_sweep,
 )
 from .utils.linalg import matvec
+from .utils.profiling import device_span, span
 
 __all__ = ["FusedCGGibbs", "FusedState"]
 
@@ -200,13 +205,16 @@ class FusedCGGibbs:
         (n_steps, C, d), nev (n_steps,)), nev[s] the evaluations of sweep s
         summed over chains."""
         C = state.beta.shape[0]
-        betas = torch.empty((n_steps, C, self.d), dtype=torch.float32,
-                            device=self.device)
-        nevs = torch.empty(n_steps, dtype=torch.int64, device=self.device)
-        for s in range(n_steps):
-            state, nev = self._sweep(state)
-            betas[s] = state.beta
-            nevs[s] = nev.sum()
+        with span("fused.run", C=int(C), n_sweeps=int(n_steps)):
+            betas = torch.empty((n_steps, C, self.d), dtype=torch.float32,
+                                device=self.device)
+            nevs = torch.empty(n_steps, dtype=torch.int64,
+                               device=self.device)
+            for s in range(n_steps):
+                with device_span("fused.sweep", self.device):
+                    state, nev = self._sweep(state)
+                betas[s] = state.beta
+                nevs[s] = nev.sum()
         return state, betas, nevs
 
     def sample(self, seed, n_samples: int, n_chains: int, chunk_size: int = 0,

@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import ranged
+
 __all__ = [
     "COMPOSED_PAIRS",
     "KERNEL_FAMILIES",
@@ -178,6 +180,7 @@ def replay_delta_star(lsum, deltas, fprior, scal):
     return torch.where((scal[:, 2] > 0) & any_acc, d_first, 0.0)
 
 
+@ranged("pass.battery")
 def plain_battery(eta, xg, deltas, y, ld_fn, reduce_fn, fprior=None,
                   scal=None):
     """The plain PyTorch battery: lsum (C, K) = reduce_fn(ld_fn(eta + xg *
@@ -241,6 +244,7 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@ranged("pass.battery")
 def battery_sums(eta, xg, deltas, y, m, family, extra):
     """lsum (C, K): the battery sums only (replaces ``build_battery``)."""
     if eta.device.type == "cpu":
@@ -260,6 +264,7 @@ def battery_sums(eta, xg, deltas, y, m, family, extra):
     return lsum
 
 
+@ranged("pass.battery")
 def battery_commit(eta, xg, deltas, fprior, scal, y, m, family, extra):
     """(lsum (C, K), eta_new (C, n)): the battery plus the replayed
     first-acceptor decision and the eta commit (replaces
@@ -285,6 +290,7 @@ def battery_commit(eta, xg, deltas, fprior, scal, y, m, family, extra):
     return lsum, eta_new
 
 
+@ranged("pass.battery")
 def battery_gather_commit(j, Xt, eta, deltas, fprior, scal, y, m, family,
                           extra):
     """:func:`battery_commit` with the row gather ``Xt[j_c]`` done inside

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import ranged
 from .freerun_batteries import (
     battery_commit,
     battery_gather_commit,
@@ -86,6 +87,7 @@ def _to_x(eng, s, xs, q_loc=None, q_scale=None):
     return xs
 
 
+@ranged("pass.prior")
 def _pseudo_target(eng, s):
     """pseudo_adapt: the current coordinate's pseudo-target loc/scale,
     gathered once per pass (constant across a coordinate episode).  The
@@ -253,6 +255,7 @@ def run_pass(eng, s, sweep_count, draws, nevbuf, n_sweeps,
                    nev_new, logw, qloc, u[:, 1:1 + nb], regs, g)
 
 
+@ranged("pass.proposals")
 def spec_proposals(eng, s, U):
     """The (C, K) speculative proposal battery of one pass.
 

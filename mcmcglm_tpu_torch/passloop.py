@@ -29,8 +29,18 @@ draw that exhausted its candidates).
 
 Kernel wrappers count their launches in module-level dicts as they
 launch.  During capture they count the launches recorded into the graph;
-the loop takes those counts back out and adds them once per replay, so
-the counts stay the number of kernels that ran.
+the loop takes those counts back out and adds them times the replays once
+per call, so the counts stay the number of kernels that ran.
+
+Each block records a ``loop.replay`` span (argument ``B``) and its flag
+read a ``loop.flag_read`` span, and a capture ``loop.capture``
+(``utils/profiling.py``).  On the graph loop a replay is timed on the card
+by two events around ``graph.replay()``, read after the flag read's
+synchronise; the last flag read of a call anchors the call's device times
+on the host clock.  Between a flag read and the next launch the loop
+records the two events only: it records each block's spans and reads the
+previous block's events after the launch, while the card runs the block,
+so the block boundary costs the card no more than the two event records.
 """
 
 from __future__ import annotations
@@ -40,13 +50,15 @@ from typing import Callable, Sequence
 
 import torch
 
+from .utils.profiling import part, recorder, span
+
 __all__ = ["BlockLoop", "new_stats"]
 
 
 def new_stats() -> dict:
-    """Counters a loop adds to: blocks run, host flag reads, graph
+    """Counters a loop adds to: host flag reads (one per block), graph
     captures and their seconds."""
-    return dict(blocks=0, flag_reads=0, captures=0, capture_seconds=0.0)
+    return dict(flag_reads=0, captures=0, capture_seconds=0.0)
 
 
 def _flatten(carry):
@@ -81,22 +93,33 @@ def _unflatten(flat, spec):
 class BlockLoop:
     """Run ``block`` until its flag says stop; see the module docstring.
 
+    ``passes``: the passes of one block (the ``B`` of its spans).
     ``counters``: the launch-count dicts of the kernels the block may
     launch.  ``stats``: a :func:`new_stats` dict to add to."""
 
-    def __init__(self, block: Callable, *, graph: bool,
+    def __init__(self, block: Callable, *, passes: int, graph: bool,
                  counters: Sequence[dict], stats: dict):
         self.block = block
+        self.passes = int(passes)
         self.graph = graph
         self.counters = list(counters)
         self.stats = stats
         self._g = None  # (graph, static carry, flag, launch deltas)
 
     def __call__(self, ctx, carry):
+        rec = recorder()
         if not self.graph:
             while True:
-                carry, flag = self.block(ctx, carry)
-                if not self._read(flag):
+                t0 = time.perf_counter_ns()
+                with part("loop.replay"):
+                    carry, flag = self.block(ctx, carry)
+                t1 = time.perf_counter_ns()
+                if rec is not None:
+                    rec.add("loop.replay", t0, t1, {"B": self.passes})
+                go, read = self._read(flag)
+                if rec is not None:
+                    rec.add("loop.flag_read", *read, {})
+                if not go:
                     return carry
         flat, spec = _flatten(carry)
         if self._g is None:
@@ -104,17 +127,45 @@ class BlockLoop:
         graph, static, flag, deltas = self._g
         for dst, src in zip(static, flat):
             dst.copy_(src)
-        while True:
-            graph.replay()
+        dev = static[0].device
+        stream = (torch.cuda.current_stream(dev)
+                  if rec is not None and dev.type == "cuda" else None)
+        replays, last, read = 0, None, None
+        try:
+            while True:
+                # between the flag read and the launch: the events only
+                t0 = time.perf_counter_ns()
+                with part("loop.replay"):
+                    ev0 = None if stream is None else rec.timing_event(stream)
+                    graph.replay()
+                    ev1 = None if stream is None else rec.timing_event(stream)
+                t1 = time.perf_counter_ns()
+                replays += 1
+                if rec is not None:  # the card runs the block meanwhile
+                    if read is not None:
+                        rec.add("loop.flag_read", *read, {})
+                        read = None
+                    last = rec.add("loop.replay", t0, t1, {"B": self.passes},
+                                   stream, None if ev0 is None else (ev0, ev1))
+                    rec.settle()
+                go, read = self._read(flag)
+                if not go:
+                    return _unflatten([t.clone() for t in static], spec)
+        finally:
             for counts, delta in zip(self.counters, deltas):
                 for k, v in delta.items():
-                    counts[k] += v
-            if not self._read(flag):
-                return _unflatten([t.clone() for t in static], spec)
+                    counts[k] += v * replays
+            if rec is not None and read is not None:
+                rec.add("loop.flag_read", *read, {})
+                if stream is not None:
+                    rec.anchor(last, read[1])
 
-    def _read(self, flag) -> bool:
-        go, bad = flag.tolist()  # the block's one host read
-        self.stats["blocks"] += 1
+    def _read(self, flag):
+        """(go, the read's host interval); raises on a bad lane-pass."""
+        t0 = time.perf_counter_ns()
+        with part("loop.flag_read"):
+            go, bad = flag.tolist()  # the block's one host read
+        t1 = time.perf_counter_ns()
         self.stats["flag_reads"] += 1
         if bad:
             raise RuntimeError(
@@ -122,31 +173,32 @@ class BlockLoop:
                 "Marsaglia-Tsang candidates (genelliptical); no draw was "
                 "approximated"
             )
-        return bool(go)
+        return bool(go), (t0, t1)
 
     def _capture(self, ctx, flat, spec):
-        t0 = time.perf_counter()
-        dev = flat[0].device
-        static = [t.clone() for t in flat]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):  # warm-up on a throwaway copy
-            self.block(ctx, _unflatten([t.clone() for t in flat], spec))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        before = [dict(c) for c in self.counters]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out, flag = self.block(ctx, _unflatten(static, spec))
-            out_flat, _ = _flatten(out)
-            for dst, src in zip(static, out_flat):
-                if src is not dst:
-                    dst.copy_(src)
-        deltas = []
-        for counts, b in zip(self.counters, before):
-            deltas.append({k: counts[k] - b[k] for k in counts})
-            counts.update(b)  # capture launched nothing
-        torch.cuda.synchronize(dev)
-        self._g = (graph, static, flag, deltas)
-        self.stats["captures"] += 1
-        self.stats["capture_seconds"] += time.perf_counter() - t0
+        with span("loop.capture", B=self.passes):
+            t0 = time.perf_counter()
+            dev = flat[0].device
+            static = [t.clone() for t in flat]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):  # warm-up on a throwaway copy
+                self.block(ctx, _unflatten([t.clone() for t in flat], spec))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            before = [dict(c) for c in self.counters]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out, flag = self.block(ctx, _unflatten(static, spec))
+                out_flat, _ = _flatten(out)
+                for dst, src in zip(static, out_flat):
+                    if src is not dst:
+                        dst.copy_(src)
+            deltas = []
+            for counts, b in zip(self.counters, before):
+                deltas.append({k: counts[k] - b[k] for k in counts})
+                counts.update(b)  # capture launched nothing
+            torch.cuda.synchronize(dev)
+            self._g = (graph, static, flag, deltas)
+            self.stats["captures"] += 1
+            self.stats["capture_seconds"] += time.perf_counter() - t0

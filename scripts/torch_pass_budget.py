@@ -52,16 +52,19 @@ captured in one graph, replayed ``REPLAYS`` times between CUDA events, so
 no Python wrapper's host cost is in a number; chained, a part alone can
 take longer than inside the pass.  Their share of the pass comes from
 inside it instead (``in_pass_*``): one block of the engine's pass runs
-eagerly under torch.profiler with each part's functions wrapped in a
-``part:<letter>`` range, which gives each kernel name's split over the
-parts (the battery kernel, launched from the port's library, is tied to
-no range and counts whole to B); the same block, captured as a CUDA
-graph, is replayed ``PROFILE_REPLAYS`` times under the profiler, and each
-kernel name's device time there is split as in the eager block.  The
-in-pass figures are the profiled replays' kernel times per pass by part;
-``other`` is the kernels outside every part (the automaton's register
-updates and bookkeeping), ``idle`` the replay's span less its busy time.
-The remainder is A less the in-pass B, D, E, F and G.  The profiled
+eagerly under torch.profiler, where the program names the pass's parts
+with ranges of its own (``utils.profiling.part``: ``pass.battery`` B,
+``pass.scatters`` D, ``pass.prior`` E, ``pass.proposals`` F,
+``pass.philox`` G, and ``pass.automaton`` H, each pass's remaining
+register updates), which gives each kernel name's split over the parts
+(the innermost range counts; the battery kernel, launched from the port's
+library and tied to no operator, counts whole to B); the same block,
+captured as a CUDA graph, is replayed ``PROFILE_REPLAYS`` times under the
+profiler, and each kernel name's device time there is split as in the
+eager block.  The in-pass figures are the profiled replays' kernel times
+per pass by part; ``other`` is the kernels outside every range (the
+block's budget and flag), ``idle`` the replay's span less its busy time.
+The remainder is A less the in-pass B, D, E, F, G and H.  The profiled
 replays also give the device operations per pass and the top 10
 operations by device time.  On the CPU (``--device cpu``) every part runs
 eagerly on the host clock, the in-pass figures are the profiler's
@@ -78,7 +81,6 @@ _HERE = _os.path.dirname(_os.path.abspath(__file__))
 _sys.path[:0] = [_os.path.dirname(_HERE), _HERE]
 
 import argparse  # noqa: E402
-import contextlib  # noqa: E402
 import statistics  # noqa: E402
 import time  # noqa: E402
 
@@ -104,18 +106,14 @@ PASSES = 64  # calls per captured graph (B-G alone)
 BLOCKS = 2  # blocks of 32 passes per captured graph (A)
 PROFILE_REPLAYS = 2
 ROUNDS = 2  # A over its three states in turn
-# the pass's functions behind each in-pass part: in ops.freerun_passes,
-# and the engine's own methods
-MODULE_PARTS = {"battery_gather_commit": "B", "battery_commit": "B",
-                "battery_sums": "B", "plain_battery": "B",
-                "_pseudo_target": "E", "spec_proposals": "F"}
-ENGINE_PARTS = {"_commit_row": "D", "_sweep_buffers": "D", "_coord_lp": "E",
-                "quantile_logpdf": "E", "_randoms": "G"}
+# the program's ranges of the pass's parts -> the in-pass figures' names
+PART_NAMES = {"pass.battery": "B_battery", "pass.scatters": "D_scatters",
+              "pass.prior": "E_prior_battery",
+              "pass.proposals": "F_proposal_gen", "pass.philox": "G_philox",
+              "pass.automaton": "H_automaton"}
 # the port's own kernels, launched from its library outside any torch
-# operator, so the profiler ties them to no range: name -> part
-OWN_KERNELS = {"battery_kernel": "B"}
-PART_NAMES = {"B": "B_battery", "D": "D_scatters", "E": "E_prior_battery",
-              "F": "F_proposal_gen", "G": "G_philox"}
+# operator: name -> part
+OWN_KERNELS = {"battery_kernel": "pass.battery"}
 
 
 def captured(fn, device):
@@ -225,50 +223,20 @@ def host_run_ms(eng, st, n_sweeps):
     return 1e3 * t / (int(out[0].ctr) - ctr0)
 
 
-@contextlib.contextmanager
-def tagged(eng):
-    """Wrap each function of MODULE_PARTS and ENGINE_PARTS in a profiler
-    range ``part:<letter>`` while the block runs; restored on exit."""
-    from torch.profiler import record_function
-
-    def wrap(fn, tag):
-        def inner(*a, **k):
-            with record_function("part:" + tag):
-                return fn(*a, **k)
-        return inner
-
-    saved = {n: getattr(fp, n) for n in MODULE_PARTS}
-    own = {n: eng.__dict__[n] for n in ENGINE_PARTS if n in eng.__dict__}
-    try:
-        for n, tag in MODULE_PARTS.items():
-            setattr(fp, n, wrap(saved[n], tag))
-        for n, tag in ENGINE_PARTS.items():
-            setattr(eng, n, wrap(getattr(eng, n), tag))
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(fp, n, fn)
-        for n in ENGINE_PARTS:
-            if n in own:
-                setattr(eng, n, own[n])
-            else:
-                delattr(eng, n)
-
-
 def tagged_ops(events, cuda):
     """(name, part, us) in launch order: on CUDA each kernel of the
     profiled block, on the CPU each operator's self time; a part is the
-    innermost ``part:`` range around the launching operator, "other" where
-    none is."""
+    innermost ``pass.*`` range around the launching operator, "other"
+    where none is."""
     from torch.autograd import DeviceType
 
     cpu = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: e.time_range.start)
-    tags = [(e.time_range.start, e.time_range.end, e.thread, e.name[5:])
-            for e in cpu if e.name.startswith("part:")]
+    tags = [(e.time_range.start, e.time_range.end, e.thread, e.name)
+            for e in cpu if e.name in PART_NAMES]
     out = []
     for e in cpu:
-        if e.name.startswith("part:") or (cuda and not e.kernels):
+        if e.name in PART_NAMES or (cuda and not e.kernels):
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         inside = [t for t in tags
@@ -295,7 +263,7 @@ def in_pass(eng, st):
     call = block_call(eng, st, 1)
     call()
     sync(dev)
-    with tagged(eng), profile(activities=acts) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         call()
         sync(dev)

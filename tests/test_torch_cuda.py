@@ -26,6 +26,7 @@ from mcmcglm_tpu_torch.datagen import (  # noqa: E402
 )
 from mcmcglm_tpu_torch.ops import freerun_batteries as fb  # noqa: E402
 from mcmcglm_tpu_torch.ops import fused_cggibbs as fc  # noqa: E402
+from mcmcglm_tpu_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -291,6 +292,36 @@ def test_auto_resolves_to_cuda3_and_mcmcglm_runs(cuda):
 
 
 # -- the fused coordinate kernels ------------------------------------------
+
+def test_fused_sweep_span_matches_event_timing(cuda):
+    """A ``fused.sweep`` span's device time is within 5% of CUDA events
+    around the whole one-sweep ``run`` that holds it, and not above; a
+    spin kernel queued first keeps the device busy while the host enqueues
+    the run, so the outer events time the device's work and not the
+    host's."""
+    rng = np.random.default_rng(1)
+    n, d, C = 4_000, 64, 64
+    X = rng.normal(size=(n, d)) / math.sqrt(d)
+    y = rng.binomial(1, 0.4, size=n)
+    eng = mt.FusedCGGibbs(X, y, "binomial", mt.IIDPrior(mt.Normal(0, 1), d),
+                          tuning={"w": 0.5}, device=cuda)
+    st, _, _ = eng.run(eng.init(0, C), 2)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        profiling.reset_spans()
+        torch.cuda._sleep(5_000_000)  # about 2.5 ms of spinning
+        t0.record()
+        st, _, _ = eng.run(st, 1)
+        t1.record()
+        torch.cuda.synchronize()
+        (sweep,) = [s for s in profiling.spans()
+                    if s["name"] == "fused.sweep"]
+        outer = 1e3 * t0.elapsed_time(t1)
+        assert 0.95 * outer <= sweep["dev_us"] <= outer
+        assert sweep["dev0"] is not None and sweep["dev1"] is not None
+
 
 PRIORS = [mt.Normal(0.2, 1.5), mt.Gamma(2.0, 1.0), mt.Exponential(1.5),
           mt.StudentT(3.0, 0.0, 1.0), mt.Laplace(0.0, 0.7),
@@ -695,7 +726,44 @@ def test_graph_loop_equals_eager_loop_bitwise(cuda, name):
     assert bool(torch.isfinite(r1[1]).all())
     stats = graph.loop_stats
     assert stats["captures"] >= 3 and stats["capture_seconds"] > 0
-    assert stats["flag_reads"] == stats["blocks"] == eager.loop_stats["blocks"]
+    assert stats["flag_reads"] == eager.loop_stats["flag_reads"] > 0
+
+
+def test_replay_spans_carry_device_intervals(cuda):
+    """The graph loop's ``loop.replay`` spans carry device times from CUDA
+    events, one per flag read, ordered and not overlapping, every gap at
+    or above 0; each replay ends on the host clock before its flag read
+    returns, the last at it; the eager loop records the same spans with no
+    device interval."""
+    graph, eager = _loop_engines("stepping_out", cuda, block_passes=8)
+    for eng in (graph, eager):
+        st = eng.init(3, 32)
+        st, _, _ = eng.run(st, 2)  # captures
+        torch.cuda.synchronize()
+        profiling.reset_spans()
+        reads0 = eng.loop_stats["flag_reads"]
+        eng.run(st, 4)
+        torch.cuda.synchronize()
+        got = profiling.spans()
+        (call,) = [s for s in got if s["name"] == "freerun.run"]
+        reps = [s for s in got if s["name"] == "loop.replay"]
+        reads = [s for s in got if s["name"] == "loop.flag_read"]
+        assert len(reps) == len(reads) == (eng.loop_stats["flag_reads"]
+                                           - reads0) > 1
+        assert {s["call"] for s in reps + reads} == {call["id"]}
+        if eng is eager:
+            assert all(s["dev_us"] is None and s["dev0"] is None
+                       for s in reps)
+            continue
+        for i, (r, f) in enumerate(zip(reps, reads)):
+            assert r["dev_us"] > 0
+            assert r["dev1"] - r["dev0"] == pytest.approx(
+                1e3 * r["dev_us"], abs=1)
+            assert r["dev1"] <= f["t1"] + 20_000  # 20 us of event rounding
+            if i:
+                assert r["prev"] == reps[i - 1]["id"] and r["gap_us"] >= 0
+                assert r["dev0"] >= reps[i - 1]["dev1"] - 1
+        assert reps[-1]["dev1"] == reads[-1]["t1"]
 
 
 def test_launch_counts_include_graph_replays(cuda):
@@ -705,19 +773,19 @@ def test_launch_counts_include_graph_replays(cuda):
     counts = {}
     for eng in (graph, eager):
         st = eng.init(0, 32)
-        before = eng.loop_stats["blocks"]
+        before = eng.loop_stats["flag_reads"]
         fb.reset_launch_counts()
         st, _, _ = eng.run(st, 3)
         torch.cuda.synchronize()
         counts[eng is graph] = (fb.launch_counts["battery_gather_commit"],
-                                eng.loop_stats["blocks"] - before)
+                                eng.loop_stats["flag_reads"] - before)
         # a second call replays the cached graph without a new capture
         fb.reset_launch_counts()
-        before = eng.loop_stats["blocks"]
+        before = eng.loop_stats["flag_reads"]
         eng.run(st, 3)
         torch.cuda.synchronize()
         assert fb.launch_counts["battery_gather_commit"] == \
-            8 * (eng.loop_stats["blocks"] - before)
+            8 * (eng.loop_stats["flag_reads"] - before)
     (g_launch, g_blocks), (e_launch, e_blocks) = counts[True], counts[False]
     assert g_blocks == e_blocks > 0
     assert e_launch == 8 * e_blocks

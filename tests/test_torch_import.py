@@ -57,7 +57,10 @@ def test_baselines_load_neither_jax_nor_optax():
         "NUTSResult", "advi_fit", "ADVIResult", "EllipticalSliceGLM",
         "HyperrectSliceGLM", "LatentSliceGLM", "QuantileSliceGLM"}
     assert all(hasattr(baselines, name) for name in baselines.__all__)
-    assert set(profiling.__all__) == {"trace", "time_block", "Timer"}
+    assert set(profiling.__all__) == {
+        "trace", "time_block", "Timer", "RING", "Recorder", "recorder",
+        "span", "device_span", "part", "ranged", "spans", "dropped_spans",
+        "set_span_recording", "reset_spans"}
 
 
 def _problem(n=50, d=3):

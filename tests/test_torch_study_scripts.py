@@ -144,12 +144,12 @@ def test_pass_budget_names_every_part(rows):
         parts[named[0]] - sum(parts[k] for k in named[1:]))
     # the in-pass split: every part's range caught some of the pass's work
     for part in ("B_battery", "D_scatters", "E_prior_battery",
-                 "F_proposal_gen", "G_philox"):
+                 "F_proposal_gen", "G_philox", "H_automaton"):
         assert parts[f"in_pass_{part}"] > 0, part
     assert parts["in_pass_busy"] == pytest.approx(sum(
         parts[f"in_pass_{k}"] for k in ("B_battery", "D_scatters",
                                         "E_prior_battery", "F_proposal_gen",
-                                        "G_philox", "other")))
+                                        "G_philox", "H_automaton", "other")))
 
 
 def test_obs_capacity_halves_exactly(rows):

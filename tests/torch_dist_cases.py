@@ -190,9 +190,9 @@ def world2(rank, jax_inputs):
     e12 = mt.ObsShardedFreeRunCGGibbs(X, y, "gaussian", prior, mesh=m12, **kw)
     res["obs12_n_local"] = int(e12.inner.Xt.shape[1])
     with CountCollectives() as cc:
-        blocks0 = e12.inner.loop_stats["blocks"]
+        blocks0 = e12.inner.loop_stats["flag_reads"]
         draws12, rate12, st12 = law_run(e12, 1, 8, 30, 120)
-        blocks = e12.inner.loop_stats["blocks"] - blocks0
+        blocks = e12.inner.loop_stats["flag_reads"] - blocks0
     res["law_obs12"] = (draws12, rate12)
     # every pass the loop ran (idle ones past the quota too) made one
     # all-reduce; init made one more; the gathers are all_gather
@@ -304,9 +304,9 @@ def world4(rank):
                                       extra={"sd": 1.0}, tuning={"w": 0.5},
                                       spec_k=4, device="cpu")
     with CountCollectives() as cc:
-        blocks0 = eng.inner.loop_stats["blocks"]
+        blocks0 = eng.inner.loop_stats["flag_reads"]
         draws, rate, st = law_run(eng, 2, 8, 30, 120)
-        blocks = eng.inner.loop_stats["blocks"] - blocks0
+        blocks = eng.inner.loop_stats["flag_reads"] - blocks0
     return dict(law=(draws, rate), state=_state_np(st),
                 allreduce=(cc.calls.get("all_reduce", 0),
                            blocks * eng.inner._block_passes + 1),
