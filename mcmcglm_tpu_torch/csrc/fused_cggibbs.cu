@@ -87,6 +87,8 @@
 #include <stdint.h>
 
 #include "families.cuh"
+#include "philox.cuh"
+#include "priors.cuh"
 
 namespace {
 
@@ -95,17 +97,6 @@ using namespace mcmcglm;
 constexpr int THREADS = 512;  // one CTA per chain
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_BC = 32;  // chains per counting block
-
-// prior ids: keep in step with KERNEL_PRIORS in
-// mcmcglm_tpu_torch/ops/fused_cggibbs.py
-enum : int {
-  PRIOR_NORMAL = 0,       // (loc, scale)
-  PRIOR_GAMMA = 1,        // (concentration, rate)
-  PRIOR_EXPONENTIAL = 2,  // (rate)
-  PRIOR_STUDENT_T = 3,    // (df, loc, scale)
-  PRIOR_LAPLACE = 4,      // (loc, scale)
-  PRIOR_UNIFORM = 5,      // (low, high)
-};
 
 struct Params {
   int n, d, bc;
@@ -122,7 +113,9 @@ struct Params {
 // b < 0, Uniform outside [low, high]
 template <int PRIOR>
 __device__ __forceinline__ float prior_rel(float b, const Params& p) {
-  const float ninf = __int_as_float(0xff800000);
+  // a local -inf, not priors.cuh's ninf(): with the call nvcc compiles the
+  // Uniform prior's support test to other (equivalent) instructions
+  const float neg_inf = __int_as_float(0xff800000);
   if (PRIOR == PRIOR_NORMAL) {  // -0.5 z^2
     const float z = __fdiv_rn(__fsub_rn(b, p.p0), p.p1);
     return __fmul_rn(__fmul_rn(-0.5f, z), z);
@@ -130,9 +123,9 @@ __device__ __forceinline__ float prior_rel(float b, const Params& p) {
     const float bb = fmaxf(b, 1.17549435e-38f);
     const float lp = __fsub_rn(__fmul_rn(__fsub_rn(p.p0, 1.f), logf(bb)),
                                __fmul_rn(p.p1, bb));
-    return b > 0.f ? lp : ninf;
+    return b > 0.f ? lp : neg_inf;
   } else if (PRIOR == PRIOR_EXPONENTIAL) {  // -r b
-    return b >= 0.f ? __fmul_rn(-p.p0, b) : ninf;
+    return b >= 0.f ? __fmul_rn(-p.p0, b) : neg_inf;
   } else if (PRIOR == PRIOR_STUDENT_T) {  // -(v + 1) / 2 log1p(z^2 / v)
     const float z = __fdiv_rn(__fsub_rn(b, p.p1), p.p2);
     const float t = log1pf(__fdiv_rn(__fmul_rn(z, z), p.p0));
@@ -140,32 +133,8 @@ __device__ __forceinline__ float prior_rel(float b, const Params& p) {
   } else if (PRIOR == PRIOR_LAPLACE) {  // -|b - loc| / scale
     return -__fdiv_rn(fabsf(__fsub_rn(b, p.p0)), p.p1);
   } else {  // PRIOR_UNIFORM
-    return (b >= p.p0 && b <= p.p1) ? 0.f : ninf;
+    return (b >= p.p0 && b <= p.p1) ? 0.f : neg_inf;
   }
-}
-
-// Philox4x32-10 of the counter (c0, c1, c2, c3) under (k0, k1): the first
-// output word, mapped to (0, 1) as the TPU kernel's _uniform maps its bits
-__device__ __forceinline__ float philox_uniform(uint32_t c0, uint32_t c1,
-                                                uint32_t c2, uint32_t c3,
-                                                uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-  }
-  const float u = __fmul_rn(__uint2float_rn(c0 >> 9), 1.f / 8388608.f);
-  return fmaxf(u, 1e-12f);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

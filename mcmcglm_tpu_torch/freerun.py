@@ -10,7 +10,9 @@ are free-running, so within one pass chain A can be shrinking coordinate
 17 while chain B steps out coordinate 901.  The passes live in
 ``ops/freerun_passes.py`` (and ``ops/freerun_doubling.py``,
 ``ops/freerun_conjugate.py``); the K-proposal batteries, and the CUDA
-kernels that evaluate them, in ``ops/freerun_batteries.py``.
+kernels that evaluate them, in ``ops/freerun_batteries.py``; on the card
+the stepping-out and quantile passes run as two kernels around the battery
+(``ops/freerun_automaton.py``, ``pass_impl``).
 
 A run is a loop of blocks of 32 passes with one host read of the
 termination flag per block (``passloop.py``); on CUDA each block is one
@@ -34,6 +36,7 @@ import torch
 
 from .models.families import Family, check_family
 from .models.priors import BetaPrior
+from .ops import freerun_automaton
 from .ops.freerun_batteries import configure_battery, launch_counts, masked_sum
 from .ops.philox import key_tensor, pass_uniforms
 from .passloop import BlockLoop, new_stats
@@ -176,7 +179,10 @@ class FreeRunCGGibbs:
     Same problem signature as the JAX package's ``FreeRunCGGibbs``, plus
     the required keyword ``device``.  ``spec_k`` defaults to 4 on CUDA and 1 on the CPU (always 1 for
     doubling).  ``battery_impl`` is "auto", "torch", "cuda", "cuda2" or
-    "cuda3" (see ``ops/freerun_batteries.configure_battery``).
+    "cuda3" (see ``ops/freerun_batteries.configure_battery``).  The pass
+    runs as the automaton kernels around the battery (``pass_impl`` "cuda")
+    or as the PyTorch pass ("torch"), chosen at construction and explained
+    in ``pass_impl_reason`` (``ops/freerun_automaton.configure_pass``).
     """
 
     def __init__(
@@ -408,6 +414,9 @@ class FreeRunCGGibbs:
         # kernel's upcast reproduces the float32 rows exactly)
         bf16_rows = x_storage == "bf16" and self.battery_impl == "cuda3"
         self._Xt_rows = self.Xt.to(torch.bfloat16) if bf16_rows else self.Xt
+        # the pass's route: the automaton kernels around the battery, or
+        # the PyTorch pass (ops/freerun_automaton.py, configure_pass)
+        freerun_automaton.configure_pass(self)
         if coord_sampler == "conjugate":
             from .ops.freerun_conjugate import conjugate_params
 
@@ -759,6 +768,8 @@ class FreeRunCGGibbs:
         budget left, bad].  The block takes the engine per call and holds
         no reference to it, so an engine and its cached loops form no
         cycle."""
+        if self.pass_impl == "cuda":
+            return freerun_automaton.make_block(B, adapt, shrink_only)
         step = self._step_fn()
         gen = self.slice_kernel == "genelliptical"
 
@@ -789,7 +800,9 @@ class FreeRunCGGibbs:
         if loop is None:
             loop = BlockLoop(self._block_fn(B, adapt, shrink_only),
                              passes=B, graph=self._graph_loop,
-                             counters=[launch_counts], stats=self.loop_stats)
+                             counters=[launch_counts,
+                                       freerun_automaton.launch_counts],
+                             stats=self.loop_stats)
         if self._graph_loop:  # an eager loop holds nothing to reuse
             self._loops[key_] = loop  # the most recently used last
             while len(self._loops) > _MAX_GRAPHS:

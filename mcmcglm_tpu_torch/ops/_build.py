@@ -123,9 +123,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         P, P, P, P, P, P, P, I, I, I, I, U, U, U, F, I, I, *fam, I, F, F, F,
         P,
     ]
+    # the automaton kernels: host arrays of pointers, ints and floats
+    lib.pass_propose.argtypes = [P, P, P, P]
+    lib.pass_advance.argtypes = [P, P, P, P]
     for fn in (lib.battery_sums, lib.battery_commit,
                lib.battery_gather_commit, lib.battery_gather_commit_bf16,
-               lib.fused_coord_update, lib.fused_sweep):
+               lib.fused_coord_update, lib.fused_sweep, lib.pass_propose,
+               lib.pass_advance):
         fn.restype = I
 
 

@@ -10,6 +10,11 @@ the angle in ``xprop`` through the ellipse and shrink toward theta = 0,
 quantile maps through the pseudo-target and shrinks toward u0 = F(b0),
 latent commits its refreshed width into ``logw``.
 
+On the card, where ``ops/freerun_automaton.configure_pass`` allows
+(``eng.pass_impl == "cuda"``), the engine runs ``run_pass_spec``'s work
+as two hand-written kernels around the battery instead; the passes here
+are the plain version those kernels are held against.
+
 Each pass takes its random draws as optional arguments: the uniform block
 ``u``, (C, 1 + nb) for ``run_pass`` and (C, K + nb) for ``run_pass_spec``
 with nb = ``eng._n_begin_u``, and for genelliptical the (C,) standard

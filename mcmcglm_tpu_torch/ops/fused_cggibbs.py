@@ -79,7 +79,7 @@ MAX_FUSED_N = 65_536
 ON_CHIP_N = (232_448 - 128) // 8
 
 # prior class -> (kernel prior id, parameter names).  Ids match the
-# PRIOR_* enum in csrc/fused_cggibbs.cu.
+# PRIOR_* enum in csrc/priors.cuh (the fused and the automaton kernels').
 KERNEL_PRIORS = {
     Normal: (0, ("loc", "scale")),
     Gamma: (1, ("concentration", "rate")),

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..freerun import FreeRunCGGibbs
+from ..ops.freerun_automaton import configure_pass
 from ..ops.freerun_batteries import masked_sum
 from .distributed import backend
 from .freerun_sharded import ShardedFreeRunCGGibbs
@@ -150,6 +151,7 @@ class ObsShardedFreeRunCGGibbs(ShardedFreeRunCGGibbs):
         all_reduce = _all_reduce_over(self.obs_group)
         inner.reduce_fn = lambda t: all_reduce(masked_sum(t, mask_loc))
         inner.combine_sums = all_reduce
+        configure_pass(inner)  # the obs shard's sums keep the PyTorch pass
         be = backend(self.obs_group)
         if device.type != "cuda":
             if graph:

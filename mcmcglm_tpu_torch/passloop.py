@@ -36,8 +36,9 @@ Each block records a ``loop.replay`` span (argument ``B``) and its flag
 read a ``loop.flag_read`` span, and a capture ``loop.capture``
 (``utils/profiling.py``).  On the graph loop a replay is timed on the card
 by two events around ``graph.replay()``, read after the flag read's
-synchronise; the last flag read of a call anchors the call's device times
-on the host clock.  Between a flag read and the next launch the loop
+synchronise; its flag read's host return bounds how late the replay can
+have ended, and the tightest such bound of a call anchors the call's
+device times on the host clock.  Between a flag read and the next launch the loop
 records the two events only: it records each block's spans and reads the
 previous block's events after the launch, while the card runs the block,
 so the block boundary costs the card no more than the two event records.
@@ -46,11 +47,14 @@ so the block boundary costs the card no more than the two event records.
 from __future__ import annotations
 
 import time
+from types import MappingProxyType
 from typing import Callable, Sequence
 
 import torch
 
 from .utils.profiling import part, recorder, span
+
+_NO_ARGS = MappingProxyType({})  # a flag read's span arguments
 
 __all__ = ["BlockLoop", "new_stats"]
 
@@ -105,6 +109,8 @@ class BlockLoop:
         self.counters = list(counters)
         self.stats = stats
         self._g = None  # (graph, static carry, flag, launch deltas)
+        # the arguments of its replay spans, one read-only dict for all
+        self._args = MappingProxyType({"B": self.passes})
 
     def __call__(self, ctx, carry):
         rec = recorder()
@@ -115,10 +121,10 @@ class BlockLoop:
                     carry, flag = self.block(ctx, carry)
                 t1 = time.perf_counter_ns()
                 if rec is not None:
-                    rec.add("loop.replay", t0, t1, {"B": self.passes})
+                    rec.add("loop.replay", t0, t1, self._args)
                 go, read = self._read(flag)
                 if rec is not None:
-                    rec.add("loop.flag_read", *read, {})
+                    rec.add("loop.flag_read", *read, _NO_ARGS)
                 if not go:
                     return carry
         flat, spec = _flatten(carry)
@@ -143,9 +149,11 @@ class BlockLoop:
                 replays += 1
                 if rec is not None:  # the card runs the block meanwhile
                     if read is not None:
-                        rec.add("loop.flag_read", *read, {})
+                        rec.add("loop.flag_read", *read, _NO_ARGS)
+                        if stream is not None:  # the last block's read
+                            rec.anchor(last, read[1])
                         read = None
-                    last = rec.add("loop.replay", t0, t1, {"B": self.passes},
+                    last = rec.add("loop.replay", t0, t1, self._args,
                                    stream, None if ev0 is None else (ev0, ev1))
                     rec.settle()
                 go, read = self._read(flag)
@@ -156,7 +164,7 @@ class BlockLoop:
                 for k, v in delta.items():
                     counts[k] += v * replays
             if rec is not None and read is not None:
-                rec.add("loop.flag_read", *read, {})
+                rec.add("loop.flag_read", *read, _NO_ARGS)
                 if stream is not None:
                     rec.anchor(last, read[1])
 

@@ -38,18 +38,24 @@ Gaps are only ever such elapsed times.  Chained, they place every device
 span of a run on one device relative to the others.
 
 Each engine call is put on the host clock by one anchor.  A free-running
-call on the graph loop is anchored at its last flag read, which returns
-just after its last replay's end event (the flag's copy follows the
-replay on the stream): that end is placed at the read's host return.
+call on the graph loop is anchored at one of its flag reads: each read
+returns after its replay's end event (the flag's copy follows the replay
+on the stream), so every read bounds how late the call's device times can
+lie, and the call takes the tightest bound: the replay whose read allows
+the earliest placement ends at that read's host return, and every other
+replay ends at or before its own read's return.  (The last read alone
+placed earlier replays up to the difference of two reads' host latencies
+after their own reads, tens of microseconds where a block is shorter than
+the host's work between two reads.)
 Any other call's first device span is placed to start when its start
 event was enqueued, exact when the stream was idle as the call began (as
 after a synchronise).  Every other device span of the call is placed from
 the anchor by the chained elapsed times (``dev0``, ``dev1``; ``None``
-where a span has no device interval).  On an H100 80GB HBM3 the mapping
-placed a replay's end from 100 us after to 40 us before (the 95th
-percentile) its own flag read's host return, which can only follow it;
-two consecutive free-running calls' anchors agreed within 90 us, and
-fused calls' enqueue anchors within 0.7 ms.
+where a span has no device interval).  On an H100 80GB HBM3 (poisson/log,
+C=64, the kernel-route pass) a replay's end lay 0 to 15 us (the 95th
+percentile) before its own flag read's host return, and two consecutive
+free-running calls' anchors agreed within 7 us; fused calls' enqueue
+anchors agreed within 0.7 ms.
 
 **Profiler ranges.**  While a torch profiler is active, each span also
 opens a range of its name on the profiler's host timeline, so that the
@@ -80,7 +86,13 @@ __all__ = ["trace", "time_block", "Timer", "RING", "Recorder", "recorder",
            "span", "device_span", "part", "ranged", "spans", "dropped_spans",
            "set_span_recording", "reset_spans"]
 
-RING = 1 << 16  # spans the recorder keeps
+# spans the recorder keeps: a limit of the program, not of any one run.
+# The pass loop records two spans a block (a replay and its flag read); at
+# the kernel route's shortest blocks (~0.54 ms for 32 passes at C=64 on an
+# H100) the ring holds the last ~140 s of a run, and drops (and counts)
+# the older spans.  A full ring takes 179 MiB of host memory, ~360 bytes
+# a span (its resident size with the card's fields set, Python 3.12).
+RING = 1 << 19
 _NULL = contextlib.nullcontext()
 
 
@@ -261,6 +273,7 @@ class Recorder:
         self._pool: dict = {}  # device index -> free timing events
         self._pending = collections.deque()  # in recording order
         self._last = None  # the timed span read last (its end event kept)
+        self._offers = []  # (timed span, host ns) anchors not weighed yet
         self._chains = itertools.count(1)
 
     def _stack(self) -> list:
@@ -290,9 +303,29 @@ class Recorder:
         return sp
 
     def anchor(self, sp: Span, host_ns: int) -> None:
-        """Anchor the engine call of timed span ``sp`` at ``sp``'s end,
-        which the host saw at ``host_ns`` (a flag read after it)."""
-        (sp._call or sp)._anchor = (sp, "end", host_ns)
+        """Offer ``host_ns``, the host return of a flag read that followed
+        timed span ``sp``, as the anchor of ``sp``'s engine call: placing
+        ``sp``'s end there is the latest placement that read allows.  The
+        call keeps the offer that places its device times earliest (module
+        docstring); an offer is weighed once ``sp``'s events are read."""
+        self._offers.append((sp, host_ns))
+        self._weigh()
+
+    def _weigh(self) -> None:
+        """Weigh the offers whose spans have device positions."""
+        keep = []
+        for sp, ns in self._offers:
+            if sp._pos is None:
+                keep.append((sp, ns))
+                continue
+            call = sp._call or sp
+            a = call._anchor
+            # a call's anchors share its chain; an offer on another chain
+            # (a device span of another device between) replaces the old
+            if (a is None or a[1] != "end" or a[0]._chain != sp._chain
+                    or ns - 1e3 * sp._pos < a[2] - 1e3 * a[0]._pos):
+                call._anchor = (sp, "end", ns)
+        self._offers = keep
 
     def settle(self) -> None:
         """Read the device times of the pending spans whose end events are
@@ -316,6 +349,8 @@ class Recorder:
             pool.append(ev0)
             sp._ev = (None, ev1)
             self._last = sp
+        if self._offers:
+            self._weigh()
 
 
 _RECORDER = Recorder()

@@ -43,6 +43,14 @@ spec_k=4, battery "auto" ("cuda3").  The parts are taken after the smoke's
   F  proposal generation: ``ops.freerun_passes.spec_proposals`` less E
   G  the Philox draws: ``_randoms`` for a block of 32 passes, per pass
 
+On the card the engine's pass is the kernel route (``eng.pass_impl`` "cuda",
+``ops/freerun_automaton.py``): the block's passes are the automaton kernels
+around the battery, named by the ranges ``pass.propose`` P and
+``pass.advance`` Q beside ``pass.battery`` B, and the run of
+``A_host_window_ms`` reports each kernel's launches by name and per pass
+(``launches``).  D-H are then the PyTorch pass's parts, timed alone: what
+the kernels replace.
+
 A is taken ``ROUNDS`` times over its three states in turn (f32 rows after
 5 and after 10 warmup sweeps, bf16 rows after 10), each time beside the
 card's SM clock, power and temperature as nvidia-smi reads them just
@@ -88,6 +96,7 @@ import torch  # noqa: E402
 
 import mcmcglm_tpu_torch as mt  # noqa: E402
 from mcmcglm_tpu_torch.datagen import generate_glm_data  # noqa: E402
+from mcmcglm_tpu_torch.ops import freerun_automaton as fa  # noqa: E402
 from mcmcglm_tpu_torch.ops import freerun_batteries as fb  # noqa: E402
 from mcmcglm_tpu_torch.ops import freerun_passes as fp  # noqa: E402
 from torch_study import (  # noqa: E402
@@ -110,10 +119,13 @@ ROUNDS = 2  # A over its three states in turn
 PART_NAMES = {"pass.battery": "B_battery", "pass.scatters": "D_scatters",
               "pass.prior": "E_prior_battery",
               "pass.proposals": "F_proposal_gen", "pass.philox": "G_philox",
-              "pass.automaton": "H_automaton"}
+              "pass.automaton": "H_automaton", "pass.propose": "P_propose",
+              "pass.advance": "Q_advance"}
 # the port's own kernels, launched from its library outside any torch
 # operator: name -> part
-OWN_KERNELS = {"battery_kernel": "pass.battery"}
+OWN_KERNELS = {"battery_kernel": "pass.battery",
+               "pass_propose_kernel": "pass.propose",
+               "pass_advance_kernel": "pass.advance"}
 
 
 def captured(fn, device):
@@ -172,6 +184,7 @@ def block_call(eng, st, blocks):
     ``st``, chained, every lane active (quota unreached)."""
     C = st.beta.shape[0]
     dev = eng.device
+    st = type(st)(*[t.clone() for t in st])  # the kernel route's in place
     block = eng._block_fn(eng._block_passes, False, eng.shrink_only)
     draws, nevbuf = eng._buffers(C, 2)
 
@@ -200,13 +213,19 @@ def host_window_ms(eng, st, n_passes):
     """The engine's run_passes on the host clock (graph replays with one
     flag read per block), ms per pass, after a call that captures; the
     quota of one sweep (about 1,100 passes at the bench's width) outlasts
-    ``n_passes``."""
+    ``n_passes``.  Also the call's kernel launches by name over its
+    passes: {name: launches per pass}."""
     eng.run_passes(st, None, None, None, 1, eng._block_passes)
     sync(eng.device)
+    fb.reset_launch_counts()
+    fa.reset_launch_counts()
     t0 = time.perf_counter()
     out = eng.run_passes(st, None, None, None, 1, n_passes)
     sync(eng.device)
-    return 1e3 * (time.perf_counter() - t0) / (int(out[0].ctr) - int(st.ctr))
+    passes = int(out[0].ctr) - int(st.ctr)
+    launches = {k: v / passes for k, v in
+                {**fa.launch_counts, **fb.launch_counts}.items() if v}
+    return 1e3 * (time.perf_counter() - t0) / passes, launches
 
 
 def host_run_ms(eng, st, n_sweeps):
@@ -351,12 +370,12 @@ def main():
             rounds.append({"round": r, "state": name,
                            "us": full_pass_us(e, s_, blocks),
                            "card_after": card_clocks(device)})
-    parts = {}
+    parts, launches = {}, {}
     for name, (e, s_) in arms.items():
         parts[f"A_full_pass_{name}"] = statistics.median(
             x["us"] for x in rounds if x["state"] == name)
-        parts[f"A_host_window_ms_{name}"] = host_window_ms(e, s_,
-                                                          WINDOW_PASSES)
+        parts[f"A_host_window_ms_{name}"], launches[name] = host_window_ms(
+            e, s_, WINDOW_PASSES)
 
     # the pass's own inputs at the warm state
     K = eng.spec_k
@@ -433,8 +452,11 @@ def main():
         print(f"{k:34s} {v:10.3f} {unit} per pass", flush=True)
     prof = ({"device_ops_per_pass": ops, "top10_us_per_pass": top}
             if top is not None else "not measured")
+    print(f"pass_impl {eng.pass_impl!r} ({eng.pass_impl_reason}); "
+          f"launches per pass {launches}", flush=True)
     rec.write({"n": n, "d": d, "chains": C, "spec_k": K,
-               "battery": eng.battery_impl, "warmup": WARMUPS[-1],
+               "battery": eng.battery_impl, "pass_impl": eng.pass_impl,
+               "launches_per_pass": launches, "warmup": WARMUPS[-1],
                "warmups_of_A": list(WARMUPS), "run_sweeps": run_sweeps,
                "calls_per_graph": P, "timing": "cuda graph replay"
                if device.type == "cuda" else "host clock, eager",

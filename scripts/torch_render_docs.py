@@ -121,10 +121,12 @@ def process_report():
     modules = sorted({m.split(".")[0] for m in sys.modules})
     launches = {}
     if "mcmcglm_tpu_torch" in sys.modules:
-        from mcmcglm_tpu_torch.ops import freerun_batteries, fused_cggibbs
+        from mcmcglm_tpu_torch.ops import (freerun_automaton,
+                                           freerun_batteries, fused_cggibbs)
 
         launches = {**freerun_batteries.launch_counts,
-                    **fused_cggibbs.launch_counts}
+                    **fused_cggibbs.launch_counts,
+                    **freerun_automaton.launch_counts}
     return {"modules": modules, "launches": launches}
 
 

@@ -9,8 +9,9 @@ inside a call and between calls, the stretch from the first call's host
 start to its first device span and from the last device span to the
 window's end on the host clock; their sum against the window's seconds
 (the account); and the error of the host-clock mapping: each replay's
-mapped end against the host return of its own flag read (not the call's
-last, which is the anchor), and each pair of consecutive calls' mapped gap
+mapped end against the host return of its own flag read (at least 0: the
+call sits at the tightest bound its reads give, and its anchor's own
+reads 0), and each pair of consecutive calls' mapped gap
 against the elapsed time between their events; and the block boundary's
 host time (the flag read, the host from its return to the next replay,
 the replay's enqueue) beside its device gap.  ``--spans off`` switches
@@ -74,7 +75,7 @@ def account(rec_window, got, every) -> dict:
         rd = reads.get(call["id"], [])
         if len(rd) == len(d):
             flag_err += [(f["t1"] - r["dev1"]) / 1e3
-                         for r, f in zip(d[:-1], rd[:-1])]
+                         for r, f in zip(d, rd)]
     anchors = [((d1[0]["dev0"] - d0[-1]["dev1"]) / 1e3 - d1[0]["gap_us"])
                for (_, d0), (_, d1) in zip(got, got[1:])]
     # the block boundary on the host: the flag read, the host from its

@@ -733,8 +733,8 @@ def test_replay_spans_carry_device_intervals(cuda):
     """The graph loop's ``loop.replay`` spans carry device times from CUDA
     events, one per flag read, ordered and not overlapping, every gap at
     or above 0; each replay ends on the host clock before its flag read
-    returns, the last at it; the eager loop records the same spans with no
-    device interval."""
+    returns, one (the call's anchor) at it; the eager loop records the same
+    spans with no device interval."""
     graph, eager = _loop_engines("stepping_out", cuda, block_passes=8)
     for eng in (graph, eager):
         st = eng.init(3, 32)
@@ -759,11 +759,11 @@ def test_replay_spans_carry_device_intervals(cuda):
             assert r["dev_us"] > 0
             assert r["dev1"] - r["dev0"] == pytest.approx(
                 1e3 * r["dev_us"], abs=1)
-            assert r["dev1"] <= f["t1"] + 20_000  # 20 us of event rounding
+            assert r["dev1"] <= f["t1"] + 1  # the rounding to whole ns
             if i:
                 assert r["prev"] == reps[i - 1]["id"] and r["gap_us"] >= 0
                 assert r["dev0"] >= reps[i - 1]["dev1"] - 1
-        assert reps[-1]["dev1"] == reads[-1]["t1"]
+        assert any(r["dev1"] == f["t1"] for r, f in zip(reps, reads))
 
 
 def test_launch_counts_include_graph_replays(cuda):
@@ -793,15 +793,21 @@ def test_launch_counts_include_graph_replays(cuda):
     assert graph.loop_stats["captures"] == 1
 
 
-def test_eager_switch_bypasses_captured_graphs(cuda):
+def test_eager_switch_bypasses_captured_graphs(cuda, monkeypatch):
     """A replay runs no Python block; with the graph loop switched off,
-    a configuration captured before runs the eager block again."""
+    a configuration captured before runs the eager block again (the
+    stepping_out engine takes the kernel route, whose block calls
+    ``freerun_automaton._pass`` once per pass)."""
+    from mcmcglm_tpu_torch.ops import freerun_automaton as fa
+
     graph, _ = _loop_engines("stepping_out", cuda)
+    assert graph.pass_impl == "cuda"
     st = graph.init(0, 8)
     want = graph.run(st, 2)  # captures
     calls = []
-    randoms = graph._randoms
-    graph._randoms = lambda *a: calls.append(1) or randoms(*a)
+    one_pass = fa._pass
+    monkeypatch.setattr(fa, "_pass",
+                        lambda *a: calls.append(1) or one_pass(*a))
     graph.run(st, 2)
     assert not calls
     graph._graph_loop = False
@@ -897,6 +903,272 @@ def test_new_samplers_match_the_gaussian_oracle(cuda, name):
     np.testing.assert_allclose(post.std(0), np.sqrt(np.diag(cov)), rtol=0.15)
     eta_ref = st.beta.double() @ eng.Xt.double()
     assert float((st.eta.double() - eta_ref).abs().max()) < 1e-3
+
+
+# -- the automaton kernels around the battery against the PyTorch pass ------
+
+# (slice kernel, tuning, family, prior, K, C, mode, max_shrink[, battery]):
+# every slice kernel and pseudo-target the kernels take, the two families
+# of the cells and the six priors of KERNEL_PRIORS, K in {2, 4, 7}, C in
+# {37, 256}, both batteries ("auto", which is "cuda3", and "cuda2"),
+# and the pass's three uses: "sample" (run_passes: shrink only, unless
+# "full", which steps out), "adapt" (warmup with every lane stepping out)
+# and "twophase" (warmup whose lanes switch to shrink only at 2 sweeps)
+Q_ADAPT = {"pseudo_scale": 2.0, "pseudo_adapt": True, "pseudo_c": 3.0}
+PASS_CASES = {
+    "so-logit-normal-K4-C256-twophase": (
+        "stepping_out", {"w": 0.5}, "binomial", mt.Normal(0, 1), 4, 256,
+        "twophase", 64),
+    "so-log-laplace-K7-C37-sample": (
+        "stepping_out", {"w": 0.3}, "poisson", mt.Laplace(0, 1), 7, 37,
+        "sample", 3),
+    "so-log-laplace-K2-C256-full": (
+        "stepping_out", {"w": 0.3}, "poisson", mt.Laplace(0, 1), 2, 256,
+        "full", 64),
+    "so-logit-normal-K7-C37-adapt": (
+        "stepping_out", {"w": 0.5}, "binomial", mt.Normal(0, 1), 7, 37,
+        "adapt", 64),
+    "q-adapted-logit-normal-K4-C256-adapt": (
+        "quantile", Q_ADAPT, "binomial", mt.Normal(0, 1), 4, 256, "adapt",
+        64),
+    "q-adapted-logit-normal-K2-C37-sample": (
+        "quantile", Q_ADAPT, "binomial", mt.Normal(0, 1), 2, 37, "sample",
+        4),
+    "q-fixed-log-laplace-K7-C256-sample": (
+        "quantile", {"pseudo_scale": 2.0}, "poisson", mt.Laplace(0, 1), 7,
+        256, "sample", 64),
+    "q-fixed-normalpsi-logit-normal-K4-C37-twophase": (
+        "quantile", {"pseudo_family": "normal", "pseudo_scale": 1.5},
+        "binomial", mt.Normal(0, 1), 4, 37, "twophase", 64),
+    "q-adapted-normalpsi-log-laplace-K4-C256-adapt": (
+        "quantile", {**Q_ADAPT, "pseudo_family": "normal"}, "poisson",
+        mt.Laplace(0, 1), 4, 256, "adapt", 64),
+    "so-gauss-studentt-K4-C37-sample": (
+        "stepping_out", {"w": 0.5}, "gaussian", mt.StudentT(4.0, 0.0, 1.5),
+        4, 37, "sample", 64),
+    "so-gauss-gamma-K4-C37-twophase": (
+        "stepping_out", {"w": 0.5}, "gaussian", mt.Gamma(2.0, 1.0), 4, 37,
+        "twophase", 64),
+    "q-fixed-gauss-exponential-K4-C37-sample": (
+        "quantile", {"pseudo_loc": 0.5, "pseudo_scale": 1.0}, "gaussian",
+        mt.Exponential(1.0), 4, 37, "sample", 64),
+    "so-gauss-uniform-K4-C37-full": (
+        "stepping_out", {"w": 0.5}, "gaussian", mt.Uniform(-3.0, 3.0), 4,
+        37, "full", 64),
+    "q-adapted-logit-normal-K4-C37-twophase-cuda2": (
+        "quantile", Q_ADAPT, "binomial", mt.Normal(0, 1), 4, 37, "twophase",
+        64, "cuda2"),
+}
+PASS_D = 5  # short sweeps: wraps and draws-slot writes every few passes
+PASS_QUOTA = 150  # lanes reach it within the run, so idle lanes are hit
+
+
+def _pass_engines(case, device):
+    """The same engine twice, the reference pinned to the PyTorch pass."""
+    kernel, tuning, fam, dist, K, C, mode, max_shrink, *battery = \
+        PASS_CASES[case]
+    beta = (np.abs(np.linspace(0.2, 0.8, PASS_D))
+            if fam == "gaussian" else None)
+    X, y, _ = mt.generate_glm_data(fam, n=400, d=PASS_D, beta=beta, seed=1)
+
+    def make():
+        return mt.FreeRunCGGibbs(
+            X, y, fam, mt.IIDPrior(dist, PASS_D), tuning=tuning,
+            extra={"sd": 1.0} if fam == "gaussian" else None,
+            slice_kernel=kernel, spec_k=K, max_shrink=max_shrink,
+            shrink_only=mode != "full", battery_impl=battery[0]
+            if battery else "auto", device=device)
+
+    ref, ker = make(), make()
+    assert ker.pass_impl == "cuda", ker.pass_impl_reason
+    ref.pass_impl = "torch"
+    return ref, ker, C, mode
+
+
+def _pass_states(ref, C, mode, n_states=87, every=23):
+    """States every ``every`` passes along a PyTorch-route run, with the
+    arguments of the pass that made them (``every`` prime, so that lanes
+    that commit every pass are met at every coordinate)."""
+    st = ref.init(7, C)
+    if mode in ("sample", "full"):
+        st, _, _ = ref.warmup(st, 3)
+    sc = torch.zeros(C, dtype=torch.int32, device=ref.device)
+    dr, nb = ref._buffers(C, PASS_QUOTA)
+    stepout = {"adapt": PASS_QUOTA, "twophase": 2}.get(mode)
+    out = []
+    for _ in range(n_states):
+        if mode in ("sample", "full"):
+            out.append((st, sc, dr.clone(), nb.clone()))
+            st, sc, dr, nb = ref.run_passes(st, sc, dr, nb, PASS_QUOTA, every)
+        else:
+            out.append((st, sc, None, None))
+            st, sc = ref.warmup_passes(st, sc, PASS_QUOTA, every, stepout)
+    adapt = mode in ("adapt", "twophase")
+    return out, dict(n_sweeps=PASS_QUOTA, adapt=adapt,
+                     shrink_only=ref.shrink_only if not adapt else False,
+                     stepout_sweeps=stepout)
+
+
+def _margin(ref, st):
+    """Each lane's smallest |f - level| over its K proposals, relative to
+    max(1, |level|), on the PyTorch route's own numbers."""
+    from mcmcglm_tpu_torch.ops import freerun_passes as fp
+    from mcmcglm_tpu_torch.ops.philox import pass_uniforms
+
+    C, K = st.beta.shape[0], ref.spec_k
+    U = pass_uniforms(st.key, st.ctr, 1, C, K + 3)[0]
+    p = fp.spec_proposals(ref, st, U[:, :K])
+    lsum = fb.battery_sums(st.eta, ref.Xt[st.j.long()], p["deltas"], ref.y,
+                           ref._mask, ref.family, ref._extra_host)
+    f = (lsum - st.ld0[:, None]) + p["fprior"]
+    rel = (f - st.level[:, None]).abs() / st.level.abs().clamp(min=1)[:, None]
+    return torch.nan_to_num(rel, nan=math.inf).amin(1)
+
+
+@pytest.mark.parametrize("case", list(PASS_CASES))
+def test_pass_kernels_match_the_torch_pass(cuda, case):
+    """One pass from states every 23 passes of a 2,000-pass PyTorch-route
+    run, on both routes: on every lane whose f lies more than 1e-4
+    (relative) from its level, the same integer registers, coordinate,
+    sweep count and accept/exhaust decision, float registers and rows
+    within 1e-5 (relative), and eta bitwise; the pass index the same.
+    The run covers stepping and shrinking lanes, exhaustion where
+    max_shrink is small, sweep wraps, draws-slot writes and idle lanes."""
+    from mcmcglm_tpu_torch.ops import freerun_automaton as fa
+    from mcmcglm_tpu_torch.ops import freerun_passes as fp
+
+    ref, ker, C, mode = _pass_engines(case, cuda)
+    states, kw = _pass_states(ref, C, mode)
+    seen = dict(lanes=0, close=0, stepping=0, exhausted=0, wraps=0,
+                draws=0, idle=0)
+    ints = ("j", "phase", "stepdir", "budL", "budR", "n_shrink", "nev")
+    floats = ("level", "L", "R", "b0", "lp0", "w", "xprop", "ld0")
+    rows = ("beta", "logw") + (("qloc",) if ref.q_adapt else ())
+    for st, sc, dr, nb in states:
+        dr2 = None if dr is None else dr.clone()
+        nb2 = None if nb is None else nb.clone()
+        t_st, t_sc, t_dr, t_nb = fp.run_pass_spec(ref, st, sc, dr, nb, **kw)
+        k_st, k_sc, k_dr, k_nb = fa.run_pass_kernels(ker, st, sc, dr2, nb2,
+                                                     **kw)
+        ok = _margin(ref, st) > 1e-4
+        seen["lanes"] += C
+        seen["close"] += int((~ok).sum())
+        assert int(t_st.ctr) == int(k_st.ctr)
+        for name in ints:
+            a, b = getattr(t_st, name), getattr(k_st, name)
+            assert torch.equal(a[ok], b[ok]), name
+        assert torch.equal(t_sc[ok], k_sc[ok])
+        for name in floats:
+            torch.testing.assert_close(getattr(k_st, name)[ok],
+                                       getattr(t_st, name)[ok], rtol=1e-5,
+                                       atol=1e-6, msg=name)
+        for name in rows:
+            torch.testing.assert_close(getattr(k_st, name)[ok],
+                                       getattr(t_st, name)[ok], rtol=1e-5,
+                                       atol=1e-6, msg=name)
+        assert torch.equal(k_st.eta[ok], t_st.eta[ok])
+        if dr is not None:
+            torch.testing.assert_close(k_dr[ok], t_dr[ok], rtol=1e-5,
+                                       atol=1e-6)
+            assert torch.equal(k_nb[ok], t_nb[ok])
+        # what the pass did, by the PyTorch route's registers
+        moved = t_st.j != st.j
+        jl = st.j.long()[:, None]
+        kept_b0 = torch.gather(t_st.beta, 1, jl)[:, 0] == st.b0
+        seen["stepping"] += int((st.phase == 0).sum())
+        seen["exhausted"] += int((moved & kept_b0 & (st.phase == 1)).sum())
+        seen["wraps"] += int((moved & (t_st.j == 0)).sum())
+        seen["draws"] += int((t_sc > sc).sum())
+        seen["idle"] += int((sc >= PASS_QUOTA).sum())
+    assert seen["close"] <= 0.01 * seen["lanes"], seen
+    assert seen["wraps"] > 0 and seen["draws"] > 0, seen
+    if mode != "sample" and PASS_CASES[case][0] == "stepping_out":
+        assert seen["stepping"] > 0, seen
+    if PASS_CASES[case][7] <= 4:
+        assert seen["exhausted"] > 0, seen
+
+
+def test_pass_kernel_uniforms_are_pass_uniforms(cuda, monkeypatch):
+    """The kernel's Philox draws at a pass index past 2^32 under a key of
+    two full words equal ``pass_uniforms`` bit for bit (read from the
+    block's workspace, ``u``)."""
+    from mcmcglm_tpu_torch.ops import freerun_automaton as fa
+    from mcmcglm_tpu_torch.ops.philox import key_tensor, pass_uniforms
+
+    made = []
+    workspace = fa._workspace
+    monkeypatch.setattr(fa, "_workspace",
+                        lambda *a: made.append(workspace(*a)) or made[-1])
+
+    _, ker, C, _ = _pass_engines("so-log-laplace-K7-C37-sample", cuda)
+    st = ker.init(0, C)
+    st = st._replace(key=key_tensor(0xDEADBEEF12345678, cuda),
+                     ctr=torch.tensor((1 << 33) + 5, dtype=torch.int64,
+                                      device=cuda))
+    sc = torch.zeros(C, dtype=torch.int32, device=cuda)
+    out, _, _, _ = fa.run_pass_kernels(ker, st, sc, None, None, 10, False,
+                                       True)
+    want = pass_uniforms(st.key, st.ctr, 1, C, ker.spec_k + 3)[0]
+    assert len(made) == 1 and torch.equal(made[0]["u"], want)
+    assert int(out.ctr) == (1 << 33) + 6
+
+
+@pytest.mark.parametrize("why", ["live_false", "quota_met"])
+def test_all_idle_kernel_pass_is_the_identity(cuda, why):
+    """A pass with every lane idle changes nothing, the pass index and the
+    draws buffers included (eta is eta + x * 0: equal values)."""
+    from mcmcglm_tpu_torch.ops import freerun_automaton as fa
+
+    for case in ("so-logit-normal-K4-C256-twophase",
+                 "q-adapted-logit-normal-K4-C256-adapt"):
+        _, ker, C, _ = _pass_engines(case, cuda)
+        st = ker.init(2, C)
+        st, _, _ = ker.warmup(st, 2)
+        quota = 4
+        sc = torch.full((C,), quota if why == "quota_met" else 1,
+                        dtype=torch.int32, device=cuda)
+        dr, nb = ker._buffers(C, quota)
+        dr0, nb0 = dr.clone(), nb.clone()
+        out, sc2, dr, nb = fa.run_pass_kernels(
+            ker, st, sc, dr, nb, quota, False, True,
+            budget=0 if why == "live_false" else 1)
+        for name, a, b in zip(st._fields, st, out):
+            assert torch.equal(a, b), name
+        assert torch.equal(sc2, sc)
+        assert torch.equal(dr, dr0) and torch.equal(nb, nb0)
+
+
+@pytest.mark.parametrize("name", ["stepping_out", "quantile"])
+def test_kernel_route_run_passes_equals_run(cuda, name):
+    """On the kernel route run_passes is bitwise one run, and the graph
+    loop bitwise the eager loop; each pass launches the two kernels and
+    the battery once."""
+    from mcmcglm_tpu_torch.ops import freerun_automaton as fa
+
+    graph, eager = _loop_engines(name, cuda)
+    assert graph.pass_impl == eager.pass_impl == "cuda"
+    out = []
+    for eng in (graph, eager):
+        st = eng.init(5, 24)
+        st, _, _ = eng.warmup(st, 4)
+        s1, draws, nevbuf = eng.run(st, 9)
+        fa.reset_launch_counts()
+        fb.reset_launch_counts()
+        c0 = int(st.ctr)
+        s2, sc, dr, nb = st, None, None, None
+        for _ in range(10_000):
+            s2, sc, dr, nb = eng.run_passes(s2, sc, dr, nb, 9, 29)
+            if bool((sc >= 9).all()):
+                break
+        _assert_states_equal(s1, s2)
+        assert torch.equal(draws, dr) and torch.equal(nevbuf, nb)
+        replayed = fa.launch_counts["pass_propose"]
+        assert replayed == fa.launch_counts["pass_advance"] == \
+            fb.launch_counts["battery_gather_commit"] >= int(s2.ctr) - c0
+        out.append((s1, draws, nevbuf))
+    (a, *ra), (b, *rb) = out
+    _assert_states_equal(a, b)
+    assert all(torch.equal(x, z) for x, z in zip(ra, rb))
 
 
 def test_run_thinned_device_ess_matches_host(cuda):
@@ -1192,7 +1464,11 @@ def test_failed_capture_raises(cuda):
             float(b.sum())  # a device read inside the pass
             return super().coord_log_prob(beta, j, b)
 
+    from mcmcglm_tpu_torch.ops import freerun_automaton as fa
+
     graph.prior = HostReadingPrior(mt.Normal(0, 1), graph.d)
+    fa.configure_pass(graph)  # a redefined density keeps the PyTorch pass
+    assert graph.pass_impl == "torch"
     st = graph.init(0, 8)
     with pytest.raises(RuntimeError):
         graph.run(st, 1)

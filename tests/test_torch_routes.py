@@ -127,3 +127,142 @@ def test_stacked_prior_matches_jax():
     np.testing.assert_allclose(draws[:, [0, 1, 3]].mean(0).numpy(),
                                np.asarray(pj.mean_beta())[[0, 1, 3]],
                                atol=0.06)
+
+
+# -- the free-running pass's route (ops/freerun_automaton.configure_pass) ---
+
+Q_ADAPT = {"pseudo_scale": 2.0, "pseudo_adapt": True, "pseudo_c": 3.0}
+
+
+class _UserDist(mt.Normal):
+    """A distribution the kernels do not know (a subclass is not its
+    parent in KERNEL_PRIORS)."""
+
+
+class _UserPrior(mt.IIDPrior):
+    """An IIDPrior whose density the user may have redefined."""
+
+
+# id -> (engine keywords, battery request, on a CUDA device object, hook,
+# pass_impl, a phrase of its reason).  The benchmark's free-running cells
+# and every prior of KERNEL_PRIORS resolve to "cuda"; each condition of
+# the rule that fails sends its configuration to "torch".
+ROUTE_CASES = {
+    "cell-logistic-p1000-quantile": (
+        dict(family="binomial", slice_kernel="quantile", tuning=Q_ADAPT,
+             spec_k=4), "auto", True, None, "cuda", "IID Normal"),
+    "cell-logistic-quantile-bf16-rows": (
+        dict(family="binomial", slice_kernel="quantile", tuning=Q_ADAPT,
+             spec_k=4, x_storage="bf16"), "auto", True, None, "cuda",
+        "'cuda3'"),
+    "cell-poisson-laplace-stepping-out": (
+        dict(family="poisson", dist=mt.Laplace(0.0, 1.0),
+             tuning={"w": 0.3}, spec_k=4), "auto", True, None, "cuda",
+        "IID Laplace"),
+    "battery-cuda2-k32": (
+        dict(tuning={"w": 0.5}, spec_k=32), "cuda2", True, None, "cuda",
+        "'cuda2'"),
+    "prior-gamma": (dict(dist=mt.Gamma(2.0, 1.0), tuning={"w": 0.5},
+                         spec_k=2), "auto", True, None, "cuda", "Gamma"),
+    "prior-exponential": (dict(dist=mt.Exponential(1.0), tuning={"w": 0.5},
+                               spec_k=4), "auto", True, None, "cuda",
+                          "Exponential"),
+    "prior-student-t": (dict(dist=mt.StudentT(3.0, 0.0, 1.0),
+                             slice_kernel="quantile", spec_k=4), "auto",
+                        True, None, "cuda", "StudentT"),
+    "prior-uniform": (dict(dist=mt.Uniform(-5.0, 5.0), tuning={"w": 0.5},
+                           spec_k=4), "auto", True, None, "cuda", "Uniform"),
+    "cpu": (dict(tuning={"w": 0.5}, spec_k=4), "auto", False, None, "torch",
+            "is not CUDA"),
+    "spec-k-1": (dict(tuning={"w": 0.5}, spec_k=1), "auto", True, None,
+                 "torch", "spec_k=1"),
+    "battery-torch": (dict(tuning={"w": 0.5}, spec_k=4), "torch", True,
+                      None, "torch", "battery_impl='torch'"),
+    "battery-cuda": (dict(tuning={"w": 0.5}, spec_k=4), "cuda", True, None,
+                     "torch", "battery_impl='cuda'"),
+    "latent": (dict(slice_kernel="latent", spec_k=4), "auto", True, None,
+               "torch", "slice_kernel='latent'"),
+    "elliptical": (dict(slice_kernel="elliptical", tuning={"sigma": 2.0},
+                        spec_k=4), "auto", True, None, "torch",
+                   "slice_kernel='elliptical'"),
+    "genelliptical": (dict(slice_kernel="genelliptical",
+                           tuning={"sigma": 2.0, "df": 5.0}, spec_k=4),
+                      "auto", True, None, "torch",
+                      "slice_kernel='genelliptical'"),
+    "doubling": (dict(slice_kernel="doubling", tuning={"w": 0.5}), "auto",
+                 True, None, "torch", "slice_kernel='doubling'"),
+    "conjugate": (dict(coord_sampler="conjugate"), "auto", True, None,
+                  "torch", "coord_sampler='conjugate'"),
+    "mvn-prior": (dict(prior="mvn", tuning={"w": 0.5}, spec_k=4), "auto",
+                  True, None, "torch", "MVNPrior"),
+    "stacked-prior": (dict(prior="stacked", tuning={"w": 0.5}, spec_k=4),
+                      "auto", True, None, "torch", "StackedPrior"),
+    "user-distribution": (dict(dist=_UserDist(), tuning={"w": 0.5},
+                               spec_k=4), "auto", True, None, "torch",
+                          "not in KERNEL_PRIORS"),
+    "iidprior-subclass": (dict(prior="subclass", tuning={"w": 0.5},
+                               spec_k=4), "auto", True, None, "torch",
+                          "_UserPrior"),
+    "user-reduce-fn": (dict(tuning={"w": 0.5}, spec_k=4,
+                            reduce_fn=lambda t: t.sum(-1)), "auto", True,
+                       None, "torch", "battery_impl='torch'"),
+    "obs-shard-combine-sums": (
+        dict(tuning={"w": 0.5}, spec_k=4), "cuda", True,
+        lambda eng: setattr(eng, "combine_sums", lambda t: t), "torch",
+        "combine_sums"),
+}
+
+
+def _routed(data, kw, battery, on_cuda, hook):
+    """An engine built on the CPU, then (``on_cuda``) given a CUDA device
+    object and its battery and pass resolved as on the card: both rules
+    read only the engine's attributes, so no card is needed."""
+    from mcmcglm_tpu_torch.ops.freerun_automaton import configure_pass
+    from mcmcglm_tpu_torch.ops.freerun_batteries import configure_battery
+
+    kw = dict(kw)
+    fam = kw.pop("family", "gaussian")
+    dist = kw.pop("dist", mt.Normal(0.0, 1.0))
+    prior = kw.pop("prior", None)
+    if fam == "gaussian":
+        X, y, _ = data
+        extra = {"sd": 1.0}
+    else:
+        X, y, _ = mt.generate_glm_data(fam, n=300, d=3, seed=0)
+        extra = None
+    d = X.shape[1]
+    prior = (mt.MVNPrior(np.zeros(d), np.eye(d)) if prior == "mvn"
+             else mt.StackedPrior([dist] * d) if prior == "stacked"
+             else _UserPrior(dist, d) if prior == "subclass"
+             else mt.IIDPrior(dist, d))
+    eng = mt.FreeRunCGGibbs(X, y, fam, prior, extra=extra, device="cpu",
+                            **kw)
+    if on_cuda:
+        eng.device = torch.device("cuda")
+        configure_battery(eng, battery, user_reduce_fn="reduce_fn" in kw)
+    if hook is not None:
+        hook(eng)
+    configure_pass(eng)
+    return eng
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_pass_impl_rule(data, case):
+    kw, battery, on_cuda, hook, want, why = ROUTE_CASES[case]
+    eng = _routed(data, kw, battery, on_cuda, hook)
+    assert eng.pass_impl == want, eng.pass_impl_reason
+    assert why in eng.pass_impl_reason
+
+
+def test_cpu_engines_keep_the_torch_pass(data):
+    """Construction records the route: on the CPU every engine runs the
+    PyTorch pass, which the tests hold against the JAX package."""
+    X, y, _ = data
+    for kernel, tuning in (("stepping_out", {"w": 0.5}),
+                           ("quantile", Q_ADAPT)):
+        eng = mt.FreeRunCGGibbs(X, y, "gaussian", mt.IIDPrior(mt.Normal(),
+                                                              3),
+                                extra={"sd": 1.0}, tuning=tuning,
+                                slice_kernel=kernel, spec_k=4, device="cpu")
+        assert eng.pass_impl == "torch"
+        assert "is not CUDA" in eng.pass_impl_reason

@@ -149,6 +149,54 @@ class _Replayed:
         self.flag.copy_(torch.tensor([int(go), 0 if go else self.bad]))
 
 
+class _Event:
+    """A timing event at a known device time (ms), complete."""
+
+    def __init__(self, ms):
+        self.ms = ms
+
+    def query(self):
+        return True
+
+    def elapsed_time(self, other):
+        return other.ms - self.ms
+
+
+class _Stream:
+    device_index = 0
+
+
+@pytest.mark.parametrize("latencies_us", [(5, 40, 5), (60, 5, 10),
+                                          (8, 8, 30)])
+def test_call_sits_at_the_tightest_flag_read(latencies_us):
+    """A free-running call's replays are placed on the host clock by the
+    flag read that bounds them most tightly: each replay ends at or before
+    its own read's host return, and the replay whose read returned soonest
+    after its end (the device's times known here) ends exactly at it."""
+    rec = profiling.recorder()
+    rec._pool[0] = []  # the events' pool, which timing_event makes
+    host0 = 10_000_000  # ns: the device's time 0 on the host clock
+    ends_ms = (0.2, 0.5, 0.8)
+    with profiling.span("freerun.run", C=4, n_sweeps=1):
+        for end, lat in zip(ends_ms, latencies_us):
+            ev = (_Event(end - 0.1), _Event(end))
+            sp = rec.add("loop.replay", 0, 0, {"B": 8}, _Stream(), ev)
+            ret = host0 + round(1e6 * end) + 1_000 * lat
+            rec.add("loop.flag_read", ret - 500, ret, {})
+            rec.anchor(sp, ret)
+    got = profiling.spans()
+    reps = [s for s in got if s["name"] == "loop.replay"]
+    reads = [s for s in got if s["name"] == "loop.flag_read"]
+    slack = [f["t1"] - r["dev1"] for r, f in zip(reps, reads)]
+    assert min(slack) == 0 and all(v >= 0 for v in slack)
+    # the tightest read is the one of least latency: every replay is
+    # placed that latency late, and no later
+    best = min(latencies_us)
+    for r, end in zip(reps, ends_ms):
+        assert r["dev1"] - (host0 + round(1e6 * end)) == \
+            pytest.approx(1_000 * best, abs=2)
+
+
 @pytest.mark.parametrize("bad", [0, 2])
 def test_graph_loop_adds_launch_counts_once_per_call(bad):
     """The graph loop adds each replay's launches (the capture's deltas)
