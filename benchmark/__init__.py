@@ -1,4 +1,4 @@
-"""The benchmark of ``mcmcglm_tpu_torch`` on one NVIDIA H100.
+"""The benchmark of ``mcmcglm_tpu_torch`` on NVIDIA H100 cards.
 
 ``python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
 --trace <0|1>`` runs one cell once; ``README.md`` says what each file

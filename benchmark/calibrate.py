@@ -13,7 +13,8 @@ free-running cell runs once more with the program's own lower precision,
 cell's limits as a run is (``check.verdict``).  The last lines summarise,
 for each number, the largest sound reading and the smallest control
 reading, and whether each control came out correct (it must not).
-The benchmark's own runs never run this.
+A cell on several cards runs each seed as ``run.py`` does, one process
+per card (``ranks.py``).  The benchmark's own runs never run this.
 """
 
 import argparse
@@ -27,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
-from benchmark import harness, spec  # noqa: E402
+from benchmark import harness, ranks, spec  # noqa: E402
 
 
 def _ints(text):
@@ -52,13 +53,19 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
 
         runs = [(s, None) for s in args.seeds]
-        if work["engine"] == "freerun":
+        if work["engine"] in ("freerun", "chainmesh"):
             runs += [(s, {"x_storage": "bf16"}) for s in args.control_seeds]
         for seed, opts in runs:
             ctl = opts is None and seed in args.control_seeds
-            line, rows, refctl = harness.run_cell(
-                args.workload, seed, args.seconds, False, "cuda",
-                t_start=time.perf_counter(), driver_opts=opts, controls=ctl)
+            kw = dict(t_start=time.perf_counter(), driver_opts=opts,
+                      controls=ctl)
+            if int(work["chips"]) == 1:
+                line, rows, refctl = harness.run_cell(
+                    args.workload, seed, args.seconds, False, "cuda", **kw)
+            else:
+                line, rows, refctl, _ = ranks.run_cell(
+                    args.workload, seed, args.seconds, False, "cuda",
+                    int(work["chips"]), **kw)
             nums = {r[0]: r[1] for r in rows}
             kind = "program" if opts is None else "program_bf16"
             row = {"cell": args.workload, "seed": seed, "kind": kind,

@@ -9,6 +9,16 @@ counters, read on the host), ``outputs()`` (the window's draws and
 counters and the final state, for the metrics and the check),
 ``profile(trace)`` (a short profiled segment after the window) and
 ``describe()``.  A new engine is a new file.
+
+A cell whose ``chips`` is N > 1 runs one ``Driver`` in each of N
+processes, one per card (``ranks.py``).  Such a driver may assume that
+the default process group of the N ranks exists (NCCL on the cards, gloo
+in the CPU tests) and that ``device`` is its rank's own card.  It drives
+its own shard: ``chains`` is the cell's, and the driver keeps its rank's
+share; ``counts()``, ``outputs()`` and ``profile()`` are its rank's, and
+the harness sums the counts and gathers the chain-leading outputs to rank
+0 along the chain axis (``chainmesh.py``).  It runs no collective that
+the other ranks do not run in the same order.
 """
 
 from __future__ import annotations

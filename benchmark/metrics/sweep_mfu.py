@@ -3,8 +3,8 @@ instructions the window's work needed (``roofline.sweep_instructions``:
 each evaluation the program's counter records, n densities at a moved
 predictor and their sum, plus each sweep's d commits of eta), over the
 float32 issue rate (67 TFLOP/s, an FMA counted as two) times the window's
-seconds (host clock).  It bounds a claim after a change that takes a
-kernel off the path."""
+seconds (host clock), times the cards.  It bounds a claim after a change
+that takes a kernel off the path."""
 
 from benchmark import roofline
 
@@ -16,4 +16,5 @@ def read(rec):
         roofline.pair(rec["config"]))
     if instr is None:
         return None
-    return 100.0 * instr / (roofline.F32_INSTR_PER_S * w["seconds"])
+    return 100.0 * instr / (roofline.F32_INSTR_PER_S * w["seconds"]
+                            * rec["cards"])

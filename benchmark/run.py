@@ -9,9 +9,13 @@ and nvidia-smi's clocks around the window, and, as its last lines, each
 number compared beside its limit; the last line of standard output is the
 result: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
-``device``, with ``--trace 1`` ``breakdown``, and last ``checks``.  Exits
-non-zero, printing no result, without CUDA, with fewer cards than the cell
-asks for, or when JAX or the JAX package was loaded.
+``device``, with ``--trace 1`` ``breakdown``, and last ``checks``.  A cell
+on N > 1 cards runs as N processes, one per card (``ranks.py``), and this
+process prints what rank 0 returned.  Exits non-zero, printing no result,
+without CUDA or with fewer cards than the cell asks for (2), when JAX or
+the JAX package was loaded in any process of the run (3), or when a rank
+raised, died or outlived its time limit, or the ranks used fewer cards
+than the cell asks for (4).
 """
 
 import time
@@ -28,7 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
-from benchmark import harness, spec  # noqa: E402
+from benchmark import harness, ranks, spec  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -39,26 +43,44 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     work, _ = spec.cell(args.workload)
+    chips = int(work["chips"])
     if not torch.cuda.is_available():
         print("run.py: CUDA is not available", file=sys.stderr)
         return 2
-    if torch.cuda.device_count() < int(work["chips"]):
-        print(f"run.py: the cell asks for {work['chips']} cards, "
+    if torch.cuda.device_count() < chips:
+        print(f"run.py: the cell asks for {chips} cards, "
               f"{torch.cuda.device_count()} present", file=sys.stderr)
         return 2
-    line, rows, _ = harness.run_cell(
-        args.workload, args.seed, args.seconds, bool(args.trace), "cuda",
-        t_start=T_START)
-    return emit(line, rows)
+    if chips == 1:
+        line, rows, _ = harness.run_cell(
+            args.workload, args.seed, args.seconds, bool(args.trace), "cuda",
+            t_start=T_START)
+        return emit(line, rows)
+    return run_ranks(args.workload, args.seed, args.seconds,
+                     bool(args.trace), "cuda", chips, t_start=T_START)
 
 
-def emit(line, rows) -> int:
+def run_ranks(name, seed, seconds, trace_on, device_type, chips, *,
+              t_start, limit_s=None) -> int:
+    """A cell on ``chips`` > 1 ranks (``ranks.run_cell``), ended as
+    :func:`emit` ends a run; 4, and no result line, when a rank failed."""
+    try:
+        line, rows, _, bad = ranks.run_cell(
+            name, seed, seconds, trace_on, device_type, chips,
+            t_start=t_start, limit_s=limit_s)
+    except ranks.RankFailure as exc:
+        print(f"run.py: {exc}", file=sys.stderr, flush=True)
+        return 4
+    return emit(line, rows, bad)
+
+
+def emit(line, rows, ranks_loaded=()) -> int:
     """Print each number compared beside its limit on standard error and
     the result line last on standard output; 3, and no result line, when a
     forbidden module was loaded at any point of the run, the reference and
-    the metric readers included."""
+    the metric readers included, here or in a rank (``ranks_loaded``)."""
     harness.report_checks(rows)
-    bad = harness.forbidden_modules()
+    bad = sorted(set(harness.forbidden_modules()) | set(ranks_loaded))
     if bad:
         print(f"run.py: forbidden modules loaded: {', '.join(bad)}",
               file=sys.stderr, flush=True)

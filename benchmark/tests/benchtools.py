@@ -111,3 +111,37 @@ def run_harness(root: Path, cell: str, *, seed: int = 2**31 + 11,
     if lines and not lines[-1].startswith(("MODULES ", "CONTROLS ")):
         line = json.loads(lines[-1])
     return line, tagged["MODULES"], tagged["CONTROLS"], proc
+
+
+RANKS_RUNNER = """
+import sys, time
+T = time.perf_counter()
+from benchmark import run
+sys.exit(run.run_ranks({cell!r}, {seed!r}, {seconds!r}, {trace!r}, "cpu",
+                       {chips!r}, t_start=T, limit_s={limit!r}))
+"""
+
+
+def run_ranks(root: Path, cell: str, *, chips: int = 2,
+              seed: int = 2**31 + 11, seconds: float = 1.0,
+              trace: bool = False, limit_s=None, env=None, rc: int = 0):
+    """Run ``cell`` once on ``chips`` gloo ranks on the CPU, as ``run.py``
+    runs a cell on several cards, from a fresh process with the copy
+    ``root`` first on the path; returns (the result line, or None where
+    the run printed none, the process), and fails unless the process exits
+    with ``rc``."""
+    code = RANKS_RUNNER.format(cell=cell, seed=seed, seconds=seconds,
+                               trace=trace, chips=chips, limit=limit_s)
+    env = dict(os.environ, **(env or {}),
+               PYTHONPATH=os.pathsep.join([str(root.parent), str(REPO)]),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root.parent,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != rc:
+        raise AssertionError(f"run exited {proc.returncode}, not {rc}:"
+                             f"\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    line = (json.loads(lines[-1]) if lines and lines[-1].startswith("{")
+            else None)
+    return line, proc
