@@ -40,7 +40,7 @@ from .ops import freerun_automaton
 from .ops.freerun_batteries import configure_battery, launch_counts, masked_sum
 from .ops.philox import key_tensor, pass_uniforms
 from .passloop import BlockLoop, new_stats
-from .utils.profiling import part, ranged, span
+from .utils.profiling import part, ranged, span, synced_span
 from .utils.linalg import matvec
 
 __all__ = ["FreeRunCGGibbs", "FreeRunState", "QuantileState"]
@@ -913,12 +913,22 @@ class FreeRunCGGibbs:
                              shrink_only=self.shrink_only)
 
     def run_thinned(self, state, n_outer: int, thin: int, moments=None,
-                    ess: bool = False, ess_max_lag: int = 64):
+                    ess: bool = False, ess_max_lag: int = 64, *,
+                    nev_at_draws: bool = False):
         """Advance chains by ``n_outer * thin`` sweeps, keeping every
-        ``thin``-th draw and streaming per-chain Welford moments on the
-        device (each block of ``thin`` sweeps is one :meth:`run` on the
-        pass loop; its draws are merged in the chunk form, which centers
-        within the block).
+        ``thin``-th draw and streaming per-chain moments of every sweep on
+        the device.  At ``thin`` = 1 that is one :meth:`run` of ``n_outer``
+        sweeps, its draws all kept and folded into the moments at once
+        (``pooled.fold_moments``, Chan's merge) and into the ESS state at
+        once (``pooled.update_ess_block``); the draws are those of one
+        ``run(state, n_outer)``.  At ``thin`` > 1 each block of ``thin``
+        sweeps is one :meth:`run`, folded the same way, its last draw
+        kept and streamed into the ESS state (``pooled.update_ess``).
+        Each fold is a ``pooled.fold`` span beside the run's call span; at
+        thin=1 it closes once the card has finished the fold
+        (``profiling.synced_span``, one synchronise a call), at ``thin`` >
+        1 it times the host's queueing alone, so the blocks stay
+        asynchronous.
 
         Returns (state, moments, draws (C, n_outer, d), n_evals (C,)):
         ``moments`` a ``parallel.pooled.ChainMoments`` with per-chain
@@ -926,8 +936,11 @@ class FreeRunCGGibbs:
         ``ess=True`` also streams the split-chain autocovariance
         accumulator (``parallel.pooled.ESSState``, window
         ``ess_max_lag``) and returns it as a fifth element, for
-        ``pooled.ess_from_state``."""
-        from .parallel.pooled import ChainMoments, init_ess, update_ess
+        ``pooled.ess_from_state``.  ``nev_at_draws=True`` appends the
+        cumulative evaluation counter at each kept draw (C, n_outer) as
+        the last element."""
+        from .parallel.pooled import (ChainMoments, fold_moments, init_ess,
+                                      update_ess, update_ess_block)
 
         C = int(state.beta.shape[0])
         dev, dtype = self.device, self.dtype
@@ -939,24 +952,30 @@ class FreeRunCGGibbs:
             )
         es = (init_ess(C, self.d, planned=n_outer, max_lag=ess_max_lag,
                        dtype=dtype, device=dev) if ess else None)
-        cnt, mean, m2 = moments
-        kept = []
-        for _ in range(int(n_outer)):
-            state, draws, _ = self.run(state, thin)
-            mu_c = torch.mean(draws, dim=1)  # (C, d)
-            m2_c = torch.sum((draws - mu_c[:, None, :]) ** 2, dim=1)
-            cnt2 = cnt + float(thin)
-            delta = mu_c - mean
-            mean = mean + delta * (float(thin) / cnt2)[:, None]
-            m2 = m2 + m2_c + delta * delta * (cnt * float(thin) / cnt2)[:, None]
-            cnt = cnt2
-            if es is not None:
-                es = update_ess(es, draws[:, -1])
-            kept.append(draws[:, -1])
-        kept = (torch.stack(kept, 1) if kept else
-                torch.zeros((C, 0, self.d), dtype=dtype, device=dev))
-        out = (state, ChainMoments(cnt, mean, m2), kept, state.nev)
-        return out + (es,) if ess else out
+        if thin == 1 and n_outer > 0:
+            state, kept, nev = self.run(state, n_outer)
+            with synced_span("pooled.fold", dev, C=C, n_draws=int(n_outer)):
+                moments = fold_moments(moments, kept)
+                if es is not None:
+                    es = update_ess_block(es, kept)
+        else:
+            kept, nev = [], []
+            for _ in range(int(n_outer)):
+                state, draws, nevbuf = self.run(state, thin)
+                with span("pooled.fold", C=C, n_draws=int(thin)):
+                    moments = fold_moments(moments, draws)
+                    if es is not None:
+                        es = update_ess(es, draws[:, -1])
+                kept.append(draws[:, -1])
+                nev.append(nevbuf[:, -1])
+            kept = (torch.stack(kept, 1) if kept else
+                    torch.zeros((C, 0, self.d), dtype=dtype, device=dev))
+            nev = (torch.stack(nev, 1) if nev else
+                   torch.zeros((C, 0), dtype=torch.int32, device=dev))
+        out = (state, moments, kept, state.nev)
+        if ess:
+            out += (es,)
+        return out + (nev,) if nev_at_draws else out
 
     def warmup(self, state, n_sweeps: int,
                stepout_sweeps: Optional[int] = None):

@@ -100,13 +100,15 @@ class ShardedFreeRunCGGibbs:
                                      n_sweeps, n_passes)
 
     def run_thinned(self, state, n_outer: int, thin: int, moments=None,
-                    ess: bool = False, ess_max_lag: int = 64):
+                    ess: bool = False, ess_max_lag: int = 64, *,
+                    nev_at_draws: bool = False):
         """``FreeRunCGGibbs.run_thinned`` on this rank's chains: the
         moments and ESS state are this shard's; ``pooled.pooled_summary``
         and ``pooled.ess_from_state`` with ``group=self.chain_group`` merge
         them over the chain axis."""
         return self.inner.run_thinned(state, n_outer, thin, moments=moments,
-                                      ess=ess, ess_max_lag=ess_max_lag)
+                                      ess=ess, ess_max_lag=ess_max_lag,
+                                      nev_at_draws=nev_at_draws)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every shard's rows of the chain-leading ``t``, in chain order."""

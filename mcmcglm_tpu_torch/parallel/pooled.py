@@ -12,7 +12,10 @@ Counterpart of ``mcmcglm_tpu/parallel/pooled.py``:
     fixed maximum lag L, one kept draw at a time, so min-ESS needs no
     (C, K, d) draw tensor on the host;
   * :func:`ess_device`, the same estimator from a resident (C, K, d)
-    draws buffer.
+    draws buffer;
+  * :func:`fold_moments` and :func:`update_ess_block`, a block of K
+    consecutive draws folded into either at once (``run_thinned`` at
+    thin=1 folds its one call's draws so).
 
 Per (chain, half) the centered autocovariance at lag l needs the raw
 lagged cross products S_l, the sums of the first l and last l draws and
@@ -23,6 +26,13 @@ chains.  :func:`merge_moments` and :func:`merge_ess` gather them over a
 chain group (the JAX package's chain-sharded arrays, whose reductions XLA
 turns into psums), and ``pooled_summary`` / ``ess_from_state`` take
 ``group=`` to summarise all chains of the mesh.
+
+Spans (``utils/profiling.py``): each gather of a merge is a
+``pooled.merge`` span (arguments ``bytes``, what this rank sends, and
+``ranks``), and the combination that follows in ``pooled_summary`` and
+``ess_from_state`` a ``pooled.summary`` span; both close once the card
+has finished (:func:`~..utils.profiling.synced_span`).  ``merge_counts``
+counts the gathers and the bytes this rank sent and received.
 """
 
 from __future__ import annotations
@@ -30,22 +40,31 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from ..utils.profiling import synced_span
 from .mesh import gather_chains
 
 __all__ = [
     "ChainMoments",
     "init_moments",
     "update_moments",
+    "fold_moments",
     "pooled_summary",
     "ESSState",
     "init_ess",
     "update_ess",
+    "update_ess_block",
     "ess_from_state",
     "ess_device",
     "merge_ess",
     "merge_moments",
+    "merge_counts",
 ]
+
+# gathers of moments and ESS state, and the bytes this rank sent and
+# received in them, since the process started
+merge_counts = {"gathers": 0, "bytes_sent": 0, "bytes_received": 0}
 
 
 class ChainMoments(NamedTuple):
@@ -73,12 +92,40 @@ def update_moments(m: ChainMoments, beta: torch.Tensor) -> ChainMoments:
     return ChainMoments(count, mean, m2)
 
 
+def fold_moments(m: ChainMoments, draws: torch.Tensor) -> ChainMoments:
+    """Chan's merge of a block of K draws per chain, draws (C, K, d),
+    into the moments: the block's own mean and sum of squared deviations,
+    then one pairwise combination (K Welford updates in exact
+    arithmetic); ``count`` a scalar or per chain (C,)."""
+    K = float(draws.shape[1])
+    mu = torch.mean(draws, dim=1)  # (C, d)
+    m2_b = torch.sum((draws - mu[:, None, :]) ** 2, dim=1)
+    count = m.count + K
+    w, wc = K / count, m.count * K / count
+    if count.dim():
+        w, wc = w[:, None], wc[:, None]
+    delta = mu - m.mean
+    return ChainMoments(count, m.mean + delta * w,
+                        m.m2 + m2_b + delta * delta * wc)
+
+
+def _gather(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`.mesh.gather_chains` in a ``pooled.merge`` span, counted."""
+    ranks = dist.get_world_size(group)
+    nbytes = t.numel() * t.element_size()
+    with synced_span("pooled.merge", t.device, bytes=nbytes, ranks=ranks):
+        out = gather_chains(t, group)
+    merge_counts["gathers"] += 1
+    merge_counts["bytes_sent"] += nbytes
+    merge_counts["bytes_received"] += nbytes * ranks
+    return out
+
+
 def merge_moments(m: ChainMoments, group) -> ChainMoments:
     """The moments of every chain of ``group`` (a sharded engine's
     ``chain_group``), in chain order; a scalar ``count`` stays one."""
-    count = m.count if m.count.dim() == 0 else gather_chains(m.count, group)
-    return ChainMoments(count, gather_chains(m.mean, group),
-                        gather_chains(m.m2, group))
+    count = m.count if m.count.dim() == 0 else _gather(m.count, group)
+    return ChainMoments(count, _gather(m.mean, group), _gather(m.m2, group))
 
 
 def pooled_summary(m: ChainMoments, group=None):
@@ -89,6 +136,12 @@ def pooled_summary(m: ChainMoments, group=None):
     the chain group first (:func:`merge_moments`)."""
     if group is not None:
         m = merge_moments(m, group)
+    with synced_span("pooled.summary", m.mean.device,
+                     C=int(m.mean.shape[0])):
+        return _summary(m)
+
+
+def _summary(m: ChainMoments) -> dict:
     C = m.mean.shape[0]
     if m.count.dim() == 1:
         Kc = m.count[:, None]
@@ -176,10 +229,52 @@ def update_ess(st: ESSState, x: torch.Tensor) -> ESSState:
                        count=t + 1)
 
 
+def update_ess_block(st: ESSState, xs: torch.Tensor) -> ESSState:
+    """Accumulate K consecutive kept draws xs (C, K, d) at once: the state
+    that K calls of :func:`update_ess` leave, up to the order of the sums.
+    Each half's draws of the block are placed after the half's ring (its
+    last L draws, oldest first); the lag-l products are summed one lag at
+    a time, each draw with its partner l draws back, and the ring, the
+    first L draws and the totals follow, all under device-side masks (no
+    host read of ``count``)."""
+    C, _, L, d = st.s.shape
+    K = int(xs.shape[1])
+    dtype, dev = st.s.dtype, xs.device
+    xs = xs.to(dtype)
+    t = st.count + torch.arange(K, dtype=st.count.dtype, device=dev)
+    half = st.planned // 2
+    start1 = st.planned - half
+    seg_t = torch.stack([t, t - start1])  # (2, K): place in its half
+    gate = torch.stack([t < half, t >= start1])  # (2, K): feeds the half
+    # ext[:, h, e]: the ring of half h oldest first (e < L), then the block
+    ext = torch.cat([st.ring.flip(2), xs[:, None].expand(C, 2, K, d)], 2)
+    lagged = []
+    for lag in range(L):
+        w = (gate & (seg_t >= lag)).to(dtype)[None, :, :, None]
+        lagged.append((xs[:, None] * w * ext[:, :, L - lag:L - lag + K])
+                      .sum(2))
+    s = st.s + torch.stack(lagged, 2)
+    # the ring: the half's n draws of this block newest first, then its
+    # old ring (the draws of a half are consecutive)
+    pos = torch.arange(L, device=dev)[None, :]
+    k1 = torch.arange(1, K + 1, device=dev)[None, :]
+    n = gate.sum(1, keepdim=True)
+    end = (gate * k1).amax(1, keepdim=True)  # one past the half's last
+    idx = torch.where(pos < n, L + end - 1 - pos, L - 1 - pos + n)
+    ring = torch.gather(ext, 2, idx[None, :, :, None].expand(C, 2, L, d))
+    hit = gate[:, :, None] & (seg_t[:, :, None] == pos[:, None, :])
+    src = hit.to(torch.int32).argmax(1)  # (2, L): the draw at place l
+    got = xs.index_select(1, src.reshape(-1)).reshape(C, 2, L, d)
+    first = torch.where(hit.any(1)[None, :, :, None], got, st.first)
+    total = st.total + (xs[:, None] * gate.to(dtype)[None, :, :, None]).sum(2)
+    return st._replace(s=s, ring=ring, first=first, total=total,
+                       count=st.count + K)
+
+
 def merge_ess(st: ESSState, group) -> ESSState:
     """The streamed ESS state of every chain of ``group``, in chain order
     (``count`` and ``planned`` are alike on every rank)."""
-    return st._replace(**{k: gather_chains(getattr(st, k), group)
+    return st._replace(**{k: _gather(getattr(st, k), group)
                           for k in ("s", "ring", "first", "total")})
 
 
@@ -188,6 +283,11 @@ def ess_from_state(st: ESSState, cap: bool = True, group=None):
     ``group``: merge a shard's state over the chain group first."""
     if group is not None:
         st = merge_ess(st, group)
+    with synced_span("pooled.summary", st.s.device, C=int(st.s.shape[0])):
+        return _ess_of_state(st, cap)
+
+
+def _ess_of_state(st: ESSState, cap: bool):
     C, _, L, d = st.s.shape
     Kf = (st.planned // 2).to(st.s.dtype)  # draws per split half
     lags = torch.arange(L, dtype=st.s.dtype, device=st.s.device)[

@@ -23,6 +23,18 @@ the last ``RING`` spans that counts what it drops (``dropped_spans()``);
 it outlives every engine.  ``spans()`` reads it as dicts;
 ``set_span_recording(False)`` switches it off (``True`` back on).
 
+The pooled monitor (``parallel/pooled.py`` and ``run_thinned``) records
+``pooled.fold`` (a kept block folded into the moments and the ESS
+state), ``pooled.merge`` (one gather over a chain group, arguments
+``bytes``, sent by this rank, and ``ranks``) and ``pooled.summary`` (the
+combination after the merges), each a call span of its own beside the
+engine's calls, never around them.  The merge, the summary and the fold
+of a thin=1 call are synced spans (:func:`synced_span`): host intervals
+that close once the card has finished the work they queued (a
+collective's included), with no CUDA events, so that they stay out of
+the chain of device spans below.  The per-block fold of a thinned loop
+is a plain span and does not synchronise.
+
 **Device intervals.**  On CUDA, a ``loop.replay`` of the graph loop and a
 ``fused.sweep`` are timed by two CUDA timing events recorded on the
 current stream just before and just after the replay or the sweep's
@@ -83,8 +95,8 @@ from typing import Optional
 import torch
 
 __all__ = ["trace", "time_block", "Timer", "RING", "Recorder", "recorder",
-           "span", "device_span", "part", "ranged", "spans", "dropped_spans",
-           "set_span_recording", "reset_spans"]
+           "span", "synced_span", "device_span", "part", "ranged", "spans",
+           "dropped_spans", "set_span_recording", "reset_spans"]
 
 # spans the recorder keeps: a limit of the program, not of any one run.
 # The pass loop records two spans a block (a replay and its flag read); at
@@ -366,6 +378,19 @@ def span(name: str, **args):
     block; yields the :class:`Span`, or None while recording is off."""
     rec = _RECORDER
     return Span(rec, name, args) if rec.enabled else _NULL
+
+
+@contextlib.contextmanager
+def synced_span(name: str, device, **args):
+    """:func:`span` whose host interval covers the device work the block
+    queued: before it closes it synchronises ``device`` when that is a
+    CUDA device (every stream of it, a collective's too), so ``t1`` falls
+    after the block's results are ready.  Only while recording is on; it
+    takes no CUDA events, so it stays out of the chain of device spans."""
+    with span(name, **args) as sp:
+        yield sp
+        if sp is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def device_span(name: str, device, **args):

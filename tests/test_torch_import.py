@@ -59,8 +59,8 @@ def test_baselines_load_neither_jax_nor_optax():
     assert all(hasattr(baselines, name) for name in baselines.__all__)
     assert set(profiling.__all__) == {
         "trace", "time_block", "Timer", "RING", "Recorder", "recorder",
-        "span", "device_span", "part", "ranged", "spans", "dropped_spans",
-        "set_span_recording", "reset_spans"}
+        "span", "synced_span", "device_span", "part", "ranged", "spans",
+        "dropped_spans", "set_span_recording", "reset_spans"}
 
 
 def _problem(n=50, d=3):

@@ -376,7 +376,9 @@ def test_shard_seeds_differ_and_repeat():
 def test_multicard_check_rehearses_on_four_cpu_ranks():
     """scripts/torch_multicard_check.py, the four-card NCCL check, on four
     CPU ranks over gloo: chain shards bitwise standalone, the obs mesh's
-    loops bitwise equal and its ranks in agreement."""
+    loops bitwise equal and its ranks in agreement, and the pooled
+    monitor's merged summaries within their tolerances of the float64
+    reference, the bfloat16 fold outside them."""
     script = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "scripts", "torch_multicard_check.py")
     out = subprocess.run([sys.executable, script, "--cpu", "4"],
@@ -385,3 +387,4 @@ def test_multicard_check_rehearses_on_four_cpu_ranks():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "MULTICARD_OK" in out.stdout
     assert out.stdout.count("bitwise standalone True") == 4
+    assert "): within; bfloat16 moments" in out.stdout

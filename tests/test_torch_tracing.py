@@ -21,7 +21,7 @@ torch.set_num_threads(2)
 
 import mcmcglm_tpu_torch as mt  # noqa: E402
 from benchmark import harness, spec  # noqa: E402
-from benchmark.tests import benchtools  # noqa: E402
+from benchmark.tests import tinyroot  # noqa: E402
 from mcmcglm_tpu_torch.passloop import BlockLoop, new_stats  # noqa: E402
 from mcmcglm_tpu_torch.utils import profiling  # noqa: E402
 
@@ -346,7 +346,7 @@ def test_readers_without_the_recorder(monkeypatch):
 
 @pytest.mark.parametrize("cell", ["tiny_logit.freerun", "tiny_logit.fused"])
 def test_tiny_harness_run_reads_no_device_metric(tmp_path, cell):
-    root = benchtools.tiny_root(tmp_path)
+    root = tinyroot.tiny_root(tmp_path)
     line, _, _ = harness.run_cell(cell, 2**31 + 7, 0.3, True, "cpu",
                                   t_start=time.perf_counter(), root=root)
     assert "evals_per_coord" in line["metrics"]
